@@ -1,11 +1,11 @@
-"""hsip_tpu — TPU-native high-speed image processing framework.
+"""hsip_tpu — accelerator-native high-speed image processing framework.
 
 A from-scratch JAX/XLA/Pallas rebuild of the Photron high-speed camera
 pipeline (CIHX/MRAW loading, flame-front tracking, DDT detection) of
-Nadexterbrown/High-Speed-Image-Processing, designed TPU-first:
+Nadexterbrown/High-Speed-Image-Processing, built around device kernels:
 
 * L0  io/        — CIHX/CIH metadata, memory-mapped MRAW payloads, synthetic data
-* L0.5 kernels/  — Pallas/XLA kernels: on-device 12-bit unpack, fused preprocess
+* L0.5 kernels/  — XLA kernels: on-device 12-bit unpack, fused preprocess
 * L1  video      — PhotonVideo, TimingInfo, SpatialCalibration
 * L2  collection — VideoCollection global indexing; parallel/ device-mesh runtime
 * L3  track/     — detectors, tracker scan, velocities, DDT, exit logic

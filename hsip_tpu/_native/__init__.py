@@ -355,7 +355,7 @@ class NativeDecoder:
         Returns ``(band, counts)`` — byte/value-identical to calling
         :meth:`gather_rows` and ``count_above_*`` separately, but the
         payload's DRAM traffic is paid once (the host-staging hot path is
-        memory-bound; VERDICT r3 #4). Raises ``RuntimeError`` on a stale
+        memory-bound). Raises ``RuntimeError`` on a stale
         cached library lacking the symbols — callers gate on
         :attr:`has_gather_count`.
         """

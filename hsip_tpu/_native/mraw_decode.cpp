@@ -1,7 +1,7 @@
 // Native MRAW codec: packed 10/12-bit <-> uint16, multithreaded.
 //
-// Host-side staging path of the framework (the TPU path ships raw packed
-// bytes to HBM and unpacks on-device; this decoder serves PhotonVideo's
+// Host-side staging path of the framework (the device path ships raw packed
+// bytes to device memory and unpacks on-device; this decoder serves PhotonVideo's
 // host frame access and validates the device kernel). Replaces the
 // reference's dependency on pyMRAW's numpy decode (reference
 // src/photron/video.py:332) with a ~GB/s parallel C++ implementation.

@@ -50,16 +50,7 @@ def _load_config_file(path: Path) -> Dict[str, Any]:
     if path.suffix.lower() == ".json":
         return json.loads(path.read_text())
     if path.suffix.lower() == ".toml":
-        try:
-            import tomllib
-        except ImportError:  # Python 3.10 (requires-python >= 3.10)
-            try:
-                import tomli as tomllib
-            except ImportError:
-                raise RuntimeError(
-                    "TOML configs need Python >= 3.11 (stdlib tomllib) or "
-                    "the 'tomli' package; use a JSON config otherwise"
-                ) from None
+        import tomllib
 
         return tomllib.loads(path.read_text())
     raise ValueError(f"Unsupported config format: {path.suffix} (use .toml or .json)")
@@ -144,7 +135,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="hsip",
         description=(
-            "TPU-native high-speed camera processing: flame-front tracking "
+            "High-speed camera processing: flame-front tracking "
             "and DDT detection over Photron CIHX/MRAW recordings."
         ),
     )
@@ -249,10 +240,8 @@ def build_parser() -> argparse.ArgumentParser:
         "--platform",
         default=None,
         metavar="NAME",
-        help="force a JAX platform (e.g. 'cpu') instead of the environment "
-             "default. Lets runs proceed on the host when the accelerator "
-             "is unreachable; note env vars alone cannot override a "
-             "platform baked in at interpreter startup",
+        help="force a JAX platform (e.g. 'cpu') instead of the "
+             "environment default",
     )
     parser.add_argument(
         "--distributed",
@@ -270,7 +259,9 @@ def build_parser() -> argparse.ArgumentParser:
     )
     parser.add_argument(
         "--process-id", type=int, default=None,
-        help="with --distributed: this process's rank for manual launches",
+        help="with --distributed: this process's rank for manual launches; "
+             "on one host, rank N takes card N alone (unless the launcher "
+             "set CUDA_VISIBLE_DEVICES or JAX_LOCAL_DEVICE_IDS)",
     )
     return parser
 
@@ -326,25 +317,9 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     if args.platform:
         # Must land before ANY backend touch (distributed init, mesh
-        # construction, the first device op). jax.config.update is the only
-        # reliable override here: setting JAX_PLATFORMS in the environment
-        # is too late once the interpreter (or a launcher hook) has already
-        # pinned the platform list.
+        # construction, the first device op).
         import jax
 
-        if args.platform == "cpu" and os.environ.get("HSIP_CPU_MAX_ISA"):
-            # Opt-in ISA cap for hosts whose CPUID is masked below what
-            # LLVM's native detection reports (sandboxed VMs; executables
-            # SIGILL mid-run otherwise): HSIP_CPU_MAX_ISA=AVX2 caps XLA:CPU
-            # codegen. Opt-in because silently capping ISA would slow every
-            # healthy machine; XLA parses the flags at backend init, so
-            # mutating them here is early enough.
-            flags = os.environ.get("XLA_FLAGS", "")
-            if "--xla_cpu_max_isa" not in flags:
-                os.environ["XLA_FLAGS"] = (
-                    f"{flags} --xla_cpu_max_isa="
-                    f"{os.environ['HSIP_CPU_MAX_ISA']}"
-                ).strip()
         try:
             jax.config.update("jax_platforms", args.platform)
             if not args.distributed:
@@ -444,6 +419,11 @@ def main(argv: Optional[List[str]] = None) -> int:
             init_kwargs["num_processes"] = args.num_processes
         if args.process_id is not None:
             init_kwargs["process_id"] = args.process_id
+            if not (os.environ.get("CUDA_VISIBLE_DEVICES")
+                    or os.environ.get("JAX_LOCAL_DEVICE_IDS")):
+                # One card per process: otherwise every process of a host
+                # opens (and reserves memory on) every card.
+                init_kwargs["local_device_ids"] = [args.process_id]
         initialize_distributed(**init_kwargs)
         processor = TPUVideoProcessor()
         if processor.is_root:

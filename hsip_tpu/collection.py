@@ -4,7 +4,7 @@ Parity target: reference ``src/photron/collection.py`` — global frame
 addressing over a list of videos, directory/file constructors with
 skip-on-failure, batch map/iter, shared calibration/trigger setters.
 
-TPU addition: :meth:`VideoCollection.batch_plan` — static-shape batching
+Device addition: :meth:`VideoCollection.batch_plan` — static-shape batching
 metadata (pad-and-mask over the video axis) for sharded device pipelines.
 """
 
@@ -219,7 +219,7 @@ class VideoCollection:
             video.set_trigger_frame(frame_index)
         return self
 
-    # -- TPU batching metadata ----------------------------------------------------------
+    # -- device batching metadata -------------------------------------------------------
 
     def batch_plan(self) -> dict:
         """Static-shape batching metadata for sharded device pipelines.

@@ -17,8 +17,9 @@ pyMRAW memmap path, ``src/photron/video.py:332,580``). Two access styles:
 * :meth:`MRAWReader.read_frame` / :meth:`read_frames` — decoded ``uint16``
   host arrays (numpy decode, or the C++ native decoder when built).
 * :meth:`MRAWReader.frame_bytes` — the *packed* bytes of a frame range, for
-  shipping raw (undecoded) data to TPU HBM where a Pallas kernel unpacks it
-  (:mod:`hsip_tpu.kernels.unpack`); 1.5 GB/s of PCIe saved per 12-bit GB/s.
+  shipping raw (undecoded) data to device memory where a kernel unpacks it
+  (:mod:`hsip_tpu.kernels.unpack`); 12-bit packing ships 1.5 bytes/px
+  instead of 2.
 """
 
 from __future__ import annotations

@@ -1,11 +1,11 @@
-"""Batched TPU preprocess: fused frame-diff → opening → blur → Sobel/gradient.
+"""Batched preprocess: fused frame-diff → opening → blur → Sobel/gradient.
 
 This is the hot compute path. The reference runs scipy filters over full
 frames, one frame at a time, per MPI rank (``scripts/process_videos.py:
-398-413``). Here the whole chain runs batched over frames on TPU with a
-**centerline-band optimization**: detection only ever reads the centerline
-row of the Sobel/gradient outputs, and every op in the chain has a bounded
-vertical footprint —
+398-413``). Here the whole chain runs batched over frames on the device
+with a **centerline-band optimization**: detection only ever reads the
+centerline row of the Sobel/gradient outputs, and every op in the chain has
+a bounded vertical footprint —
 
     opening (k×k):      ±(k-1)
     Gaussian blur (σ):  ±int(4σ + 0.5)
@@ -18,9 +18,8 @@ exactly even when the band folds over the image edge, so band results are
 bit-comparable (in float32) to full-frame scipy.
 
 Everything is pure jnp under ``jax.jit`` — static shapes, no Python control
-flow on traced values — so XLA fuses the chain into a handful of VPU loops.
-A hand-fused Pallas variant of the same contract lives in
-:mod:`hsip_tpu.kernels.pallas_preprocess`.
+flow on traced values — so XLA fuses the chain into a few memory-bound
+elementwise/window loops.
 """
 
 from __future__ import annotations
@@ -230,17 +229,15 @@ def band_to_profiles(
     frame_diff_threshold,
     morphology_kernel_size: int,
     gaussian_sigma: float,
-    use_pallas: bool,
 ) -> Tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray]:
     """BG-subtracted band (N, 2M+1, W) → masked (sobel, gradient, intensity)
     centerline profiles: prior gather → diff → threshold → fused chain →
     zero rows without a prior. The single semantic core shared by every
     band entry point (full-frame gather, packed full-frame, packed band).
 
-    Validates the band height against ``band_margin`` on BOTH kernel paths:
-    a band built for different (k, sigma) would otherwise silently produce
-    profiles centered off the centerline (the Pallas path raised, the jnp
-    path did not).
+    Validates the band height against ``band_margin``: a band built for
+    different (k, sigma) would otherwise silently produce profiles
+    centered off the centerline.
     """
     expected = 2 * band_margin(morphology_kernel_size, gaussian_sigma) + 1
     if band.shape[-2] != expected:
@@ -248,22 +245,13 @@ def band_to_profiles(
             f"band has {band.shape[-2]} rows; k={morphology_kernel_size}, "
             f"sigma={gaussian_sigma} needs {expected}"
         )
-    if use_pallas:
-        from .pallas_preprocess import pallas_band_profiles
-
-        sob, grad, intens = pallas_band_profiles(
-            band, prior_index, frame_diff_threshold,
-            morphology_kernel_size=morphology_kernel_size,
-            gaussian_sigma=gaussian_sigma,
-        )
-    else:
-        taps = jnp.asarray(gaussian_taps(gaussian_sigma))
-        prior_band = band[jnp.maximum(prior_index, 0)]
-        diff = band - prior_band
-        diff = jnp.where(diff < frame_diff_threshold, 0.0, diff)
-        sob, grad, intens = diff_profiles_from_band(
-            diff, morphology_kernel_size, taps
-        )
+    taps = jnp.asarray(gaussian_taps(gaussian_sigma))
+    prior_band = band[jnp.maximum(prior_index, 0)]
+    diff = band - prior_band
+    diff = jnp.where(diff < frame_diff_threshold, 0.0, diff)
+    sob, grad, intens = diff_profiles_from_band(
+        diff, morphology_kernel_size, taps
+    )
     valid = (prior_index >= 0)[:, None]
     return (
         jnp.where(valid, sob, 0.0),
@@ -290,7 +278,7 @@ def signal_count(sub: jnp.ndarray, noise_threshold: float) -> jnp.ndarray:
 @partial(
     jax.jit,
     static_argnames=(
-        "morphology_kernel_size", "gaussian_sigma", "center_row", "use_pallas",
+        "morphology_kernel_size", "gaussian_sigma", "center_row",
     ),
 )
 def batch_centerline_profiles(
@@ -302,7 +290,6 @@ def batch_centerline_profiles(
     morphology_kernel_size: int = 3,
     gaussian_sigma: float = 1.5,
     center_row: Optional[int] = None,
-    use_pallas: bool = False,
 ) -> Tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray, jnp.ndarray, jnp.ndarray]:
     """Full batched preprocess: frames → centerline profiles + empty stats.
 
@@ -338,6 +325,6 @@ def batch_centerline_profiles(
     raw_center_lines = band[:, margin, :]
     sobel_lines, gradient_lines, intensity_lines = band_to_profiles(
         band, prior_index, frame_diff_threshold,
-        morphology_kernel_size, gaussian_sigma, use_pallas,
+        morphology_kernel_size, gaussian_sigma,
     )
     return sobel_lines, gradient_lines, intensity_lines, raw_center_lines, counts

@@ -2,7 +2,7 @@
 
 These are the numerical ground truth for the whole framework:
 
-* the TPU kernels (:mod:`hsip_tpu.kernels.preprocess`) are validated against
+* the device kernels (:mod:`hsip_tpu.kernels.preprocess`) are validated against
   them in tests, and
 * the exact float64 tracking path uses them directly when bit-identical
   output tables are required.

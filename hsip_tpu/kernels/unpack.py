@@ -1,14 +1,14 @@
-"""On-device MRAW unpacking: raw packed bytes → pixels, on the TPU.
+"""On-device MRAW unpacking: raw packed bytes → pixels, on the device.
 
-The PCIe/tunnel transfer is a first-order cost of the pipeline, so the
-staging path ships the *packed* MRAW payload to HBM (1.5 bytes/px for
+The host-to-device transfer is a first-order cost of the pipeline, so the
+staging path ships the *packed* MRAW payload to device memory (1.5 bytes/px for
 12-bit — a 1.33× transfer saving over decoded uint16, 2.67× over float32)
 and unpacks on-device with vectorized integer ops. Parity oracle:
 :func:`hsip_tpu.io.mraw.unpack_12bit` (host numpy) and the C++ decoder.
 
 The fused entry (:func:`packed_centerline_profiles`) goes straight from
 packed bytes to centerline profiles without materializing full decoded
-frames in HBM: with byte-aligned rows only the band rows are decoded (the
+frames in device memory: with byte-aligned rows only the band rows are decoded (the
 full-frame decode feeding the empty-frame counts fuses into the count
 reduction); rows that straddle byte boundaries gather the band from the
 flat full-frame decode instead.
@@ -105,7 +105,7 @@ def rows_byte_aligned(width: int, bit_depth: int) -> bool:
 @partial(
     jax.jit,
     static_argnames=(
-        "morphology_kernel_size", "gaussian_sigma", "use_pallas", "bit_depth",
+        "morphology_kernel_size", "gaussian_sigma", "bit_depth",
     ),
 )
 def packed_band_profiles(
@@ -115,7 +115,6 @@ def packed_band_profiles(
     frame_diff_threshold: jnp.ndarray,
     morphology_kernel_size: int = 3,
     gaussian_sigma: float = 1.5,
-    use_pallas: bool = False,
     bit_depth: int = 12,
 ):
     """Packed BAND bytes (N, B, row_nbytes) → centerline profiles.
@@ -132,7 +131,7 @@ def packed_band_profiles(
 
     sobel_lines, gradient_lines, intensity_lines = band_to_profiles(
         band, prior_index, frame_diff_threshold,
-        morphology_kernel_size, gaussian_sigma, use_pallas,
+        morphology_kernel_size, gaussian_sigma,
     )
     return sobel_lines, gradient_lines, intensity_lines, raw_center_lines
 
@@ -141,7 +140,7 @@ def packed_band_profiles(
     jax.jit,
     static_argnames=(
         "height", "width", "morphology_kernel_size", "gaussian_sigma",
-        "center_row", "use_pallas", "bit_depth",
+        "center_row", "bit_depth",
     ),
 )
 def packed_centerline_profiles(
@@ -155,7 +154,6 @@ def packed_centerline_profiles(
     morphology_kernel_size: int = 3,
     gaussian_sigma: float = 1.5,
     center_row: Optional[int] = None,
-    use_pallas: bool = False,
     bit_depth: int = 12,
 ) -> Tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray, jnp.ndarray, jnp.ndarray]:
     """Packed bytes (N, frame_nbytes) → centerline profiles + counts.
@@ -190,6 +188,6 @@ def packed_centerline_profiles(
 
     sobel_lines, gradient_lines, intensity_lines = band_to_profiles(
         band, prior_index, frame_diff_threshold,
-        morphology_kernel_size, gaussian_sigma, use_pallas,
+        morphology_kernel_size, gaussian_sigma,
     )
     return sobel_lines, gradient_lines, intensity_lines, raw_center_lines, counts

@@ -2,7 +2,7 @@
 distribution with the MPI-era API.
 
 Parity target: reference ``src/photron/parallel.py`` (MPIVideoProcessor),
-rebuilt TPU-native — shard_map + ICI collectives instead of mpi4py.
+rebuilt on JAX — shard_map + device collectives instead of mpi4py.
 """
 
 from .mesh import frame_sharding, make_mesh, video_frame_mesh

@@ -1,8 +1,8 @@
 """Device mesh construction for sharded video processing.
 
 The reference's parallelism is MPI data-parallelism over frames/videos
-(``src/photron/parallel.py``). The TPU-native equivalent is a
-``jax.sharding.Mesh`` over the chips of a slice:
+(``src/photron/parallel.py``). The JAX equivalent is a
+``jax.sharding.Mesh`` over the local accelerators:
 
 * ``frame`` axis — frames of one video sharded across devices (the map
   phase is embarrassingly parallel; halo exchange handles differencing

@@ -3,7 +3,7 @@
 Parity target: reference ``scripts/process_videos.py:1277-1699``
 (``process_video_source`` + ``main``) — file discovery, per-file calibration,
 background estimation, tracking, DDT-split results tables, diagnostics —
-rebuilt on the map-then-scan TPU driver (:mod:`hsip_tpu.track.scan`).
+rebuilt on the map-then-scan device driver (:mod:`hsip_tpu.track.scan`).
 
 Output tables are format-identical to the reference writer
 (``process_videos.py:1561-1604``): same header block, same column names,

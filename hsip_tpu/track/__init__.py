@@ -2,7 +2,7 @@
 
 Parity target: the analysis layer of reference ``scripts/process_videos.py``
 (FlameDetector & friends), promoted into the library proper and split at the
-map/scan seam for TPU execution.
+map/scan seam for device execution.
 
 The jax-heavy submodules (scan, device_scan, batch) load lazily so that
 metadata/config/visualization consumers — including the spawned figure-render

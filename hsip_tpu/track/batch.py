@@ -1,6 +1,6 @@
 """Collection-scale tracking: many videos, one device dispatch.
 
-The pod-scale path (BASELINE.json config #5): every video's centerline
+The library-scale path (BASELINE.json config #5): every video's centerline
 profiles are computed by the batched map phase, padded to a common length,
 and the WHOLE tracking state machine runs as ``vmap(lax.scan)`` over the
 video axis on device — positions, DDT, exit truncation for the entire
@@ -36,41 +36,12 @@ from .tracker import FlameTracker
 
 __all__ = ["track_collection_device", "ScanHistory", "build_device_scan_output"]
 
-# Tracking-scan kernel selection: "auto" (Pallas on TPU backends, lax.scan
-# elsewhere), "off" (always lax.scan), "interpret" (Pallas in interpret
-# mode — tests exercise the kernel path, incl. under shard_map, on CPU).
-_PALLAS_MODE = "auto"
-
 # Introspection: which library path each uniform-shape group took on the
 # most recent track_collection_device call — "fused" (one device program)
 # or "chunked" (general map-then-scan). The driver dryrun and the chip
 # tier assert the fused path actually engaged; a silent fallback would
 # pass parity while losing the perf property the bench claims.
 LAST_GROUP_PATHS: List[str] = []
-
-
-def _use_batched_kernel(v_per_device: int, w: int, method: str) -> bool:
-    """Route a per-device video batch to the batched Pallas kernel or the
-    vmapped ``lax.scan`` (bit-identical by contract, so this is purely a
-    throughput choice). The sublane-vectorized kernel packs 8 videos per
-    tile, so it wins at every measured V (v5e sweep 2026-08-19: 2.1-2.4
-    µs/step at V=1..8 vs lax.scan's 22.7..7.5); the cap only gates
-    batches beyond the sweep's largest measured point — see
-    :func:`~hsip_tpu.track.pallas_scan.batched_kernel_max_videos`.
-    Interpret mode forces the kernel so CPU tests exercise it at any V.
-    """
-    from .pallas_scan import batched_kernel_max_videos, supports_pallas_scan
-
-    if _PALLAS_MODE == "off" or not supports_pallas_scan(w, method):
-        return False
-    if _PALLAS_MODE == "interpret":
-        return True
-    from ..utils.backend import is_tpu_backend
-
-    return (
-        is_tpu_backend()
-        and v_per_device <= batched_kernel_max_videos()
-    )
 
 
 class ScanHistory:
@@ -248,15 +219,15 @@ def track_collection_device(
     to the group's longest frame count) is bounded by ``max_group_bytes``
     (default 2 GiB): oversized groups split into sub-batches, ordered by
     frame count so padding stays minimal — a 500-video library cannot
-    overflow HBM, and one 100k-frame recording doesn't pad fifty 2k-frame
-    ones to 100k steps. Per-video results are independent, so sub-batching
+    overflow device memory, and one 100k-frame recording doesn't pad fifty
+    2k-frame ones to 100k steps. Per-video results are independent, so sub-batching
     never changes output tables.
 
     With ``mesh`` (a :class:`jax.sharding.Mesh` carrying ``video_axis``),
     each sub-batch's video axis shards across devices: each device scans
-    its videos concurrently — the pod-scale layout where a whole library
-    tracks in one dispatch across a slice. The video count is padded to the
-    axis size with inert (all-empty) videos.
+    its videos concurrently — the multi-card layout where a whole library
+    tracks in one dispatch across the cards. The video count is padded to
+    the axis size with inert (all-empty) videos.
 
     ``stage_times`` (a :class:`~hsip_tpu.utils.StageTimes`) accumulates
     host wall-clock per pipeline stage across ALL videos/sub-batches —
@@ -460,105 +431,75 @@ def _track_uniform_videos(
     _collate_t.__exit__(None, None, None)
 
     # --- one device scan over the whole video axis ---
-    # Kernel selection is batch-size-aware: the sublane-vectorized Pallas
-    # scan packs 8 videos per tile (per-step cost ~constant in V up to 8),
-    # so it beats the vmapped lax.scan at every measured V — v5e sweep
-    # 2026-08-19 (M=2048, W=1024, pipelined): 2.1-2.4 µs/step at V=1/2/4/8
-    # vs lax.scan's 22.7/9.7/7.3/7.5. The cap only gates batches beyond
-    # the sweep's largest measured point. Under a mesh the choice applies
-    # to each device's shard. All paths are bit-identical by contract
-    # (interpret mode keeps forcing the kernel so CPU tests exercise it
-    # at any V).
-    from .pallas_scan import (
-        default_frames_per_step,
-        pallas_tracking_scan_batched,
-    )
+    # On a GPU the Pallas (Triton) kernel runs one program per video; other
+    # backends vmap the lax.scan. Under a mesh each device scans its own
+    # shard. Both are bit-identical by contract; a kernel failure raises.
+    from . import pallas_scan
 
-    pallas_interpret = _PALLAS_MODE == "interpret"
-    v_per_device = V if mesh is None else V // mesh.shape[video_axis]
-    use_pallas = n_max > 0 and _use_batched_kernel(v_per_device, w, method)
-    if use_pallas:
-        import numpy as _np
-
-        kernel_fraction = _np.float32(
+    if n_max > 0 and pallas_scan.kernel_enabled():
+        kernel_fraction = np.float32(
             config.threshold_fraction if method == "threshold"
             else config.half_maximum_fraction
         )
 
         def kernel_scan(fi_l, sob_l, grad_l, it_l, empty_l, hp_l,
                         cal_l, fps_l, md_l):
-            return pallas_tracking_scan_batched(
+            return pallas_scan.pallas_tracking_scan_batched(
                 fi_l, sob_l, grad_l, empty_l, hp_l,
                 width=w,
-                min_gradient_strength=_np.float32(
+                min_gradient_strength=np.float32(
                     config.min_gradient_strength
                 ),
-                sobel_threshold_fraction=_np.float32(
+                sobel_threshold_fraction=np.float32(
                     config.sobel_threshold_fraction
                 ),
-                ddt_velocity_jump=_np.float32(config.ddt_velocity_jump_m_s),
+                ddt_velocity_jump=np.float32(config.ddt_velocity_jump_m_s),
                 calibration=cal_l,
                 frame_rate=fps_l,
                 max_displacement_px=md_l,
                 edge_margin_px=config.edge_margin_px,
                 search_window_px=config.search_window_px,
                 exit_margin_px=config.exit_margin_px,
-                interpret=pallas_interpret,
-                frames_per_step=default_frames_per_step(),
+                interpret=pallas_scan.INTERPRET,
                 method=method,
                 intensity_lines=it_l,
                 method_fraction=kernel_fraction,
             )
 
-        try:
-            kern_args = (
-                jnp.asarray(fi), sob, grad, intens,
-                jnp.asarray(empty), jnp.asarray(has_prior),
-                jnp.asarray(cals), jnp.asarray(fpss), jnp.asarray(max_disps),
-            )
-            if mesh is not None:
-                # Each device runs the single-kernel scan over ITS videos
-                # (V is already padded to the axis size).
-                from jax import shard_map
-                from jax.sharding import PartitionSpec as P
+        kern_args = (
+            jnp.asarray(fi), sob, grad, intens,
+            jnp.asarray(empty), jnp.asarray(has_prior),
+            jnp.asarray(cals), jnp.asarray(fpss), jnp.asarray(max_disps),
+        )
+        if mesh is not None:
+            # Each device runs the kernel over ITS videos (V is already
+            # padded to the axis size).
+            from jax import shard_map
+            from jax.sharding import PartitionSpec as P
 
-                from .device_scan import DeviceScanResult
+            from .device_scan import DeviceScanResult
 
-                vm = P(video_axis, None)
-                vmw = P(video_axis, None, None)
-                vs = P(video_axis)
-                with stage_times.stage("scan_dispatch"):
-                    res = jax.jit(shard_map(
-                        kernel_scan,
-                        mesh=mesh,
-                        in_specs=(vm, vmw, vmw, vmw, vm, vm, vs, vs, vs),
-                        out_specs=DeviceScanResult(
-                            final_position=vm, recorded=vm, is_post_ddt=vm,
-                            search_start=vm, search_end=vm,
-                            stop_step=vs, stop_reason=vs,
-                            ddt_frame=vs, clear_vc_entry=vs,
-                        ),
-                        check_vma=False,
-                    ))(*kern_args)
-            else:
-                with stage_times.stage("scan_dispatch"):
-                    res = kernel_scan(*kern_args)
-        except Exception as exc:  # noqa: BLE001 — bit-identical fallback
-            # Degrade to the vmapped lax.scan (identical outputs) rather
-            # than abort a whole library batch on a kernel failure. ONLY
-            # the kernel call is guarded: a host-side reconstruction bug
-            # must still fail loudly, not be mislabeled as a kernel issue.
-            from ..utils.logging import get_logger
-
-            get_logger("track").warning(
-                "batched pallas scan unavailable (%s: %s); using lax.scan",
-                type(exc).__name__, exc,
-            )
-        else:
-            return _outputs_from_scan(
-                res, videos, profiles, fi, empty, calibs, use_absolute_time,
-                config, stage_times=stage_times,
-            )
+            vm = P(video_axis, None)
+            vmw = P(video_axis, None, None)
+            vs = P(video_axis)
+            kernel_scan = jax.jit(shard_map(
+                kernel_scan,
+                mesh=mesh,
+                in_specs=(vm, vmw, vmw, vmw, vm, vm, vs, vs, vs),
+                out_specs=DeviceScanResult(
+                    final_position=vm, recorded=vm, is_post_ddt=vm,
+                    search_start=vm, search_end=vm,
+                    stop_step=vs, stop_reason=vs,
+                    ddt_frame=vs, clear_vc_entry=vs,
+                ),
+                check_vma=False,
+            ))
+        with stage_times.stage("scan_dispatch"):
+            res = kernel_scan(*kern_args)
+        return _outputs_from_scan(
+            res, videos, profiles, fi, empty, calibs, use_absolute_time,
+            config, stage_times=stage_times,
+        )
 
     fraction = (config.threshold_fraction if method == "threshold"
                 else config.half_maximum_fraction)
@@ -617,7 +558,7 @@ def _outputs_from_scan(res, videos, profiles, fi, empty, calibs,
                        use_absolute_time,
                        config: FlameDetectorConfig,
                        stage_times=None) -> List[TrackingOutput]:
-    """Host reconstruction shared by the Pallas and vmapped-lax.scan paths:
+    """Host reconstruction shared by the kernel and vmapped-lax.scan paths:
     rows, float64 velocities, and the authoritative float64
     truncation/DDT decisions per video — the scans emit integer positions
     (their f32 stop latches are advisory; see build_device_scan_output)."""

@@ -174,6 +174,7 @@ class DeviceScanResult(NamedTuple):
         "search_window_px",
         "exit_margin_px",
         "method",
+        "unroll",
     ),
 )
 def device_tracking_scan(
@@ -197,6 +198,7 @@ def device_tracking_scan(
     method: str = "combined",
     intensity_lines: jnp.ndarray = None,   # (M, W) f32 — named methods only
     method_fraction: jnp.ndarray = 0.5,    # threshold/half_maximum fraction
+    unroll: int = 1,
 ) -> DeviceScanResult:
     """Run the tracking state machine on device.
 
@@ -206,6 +208,8 @@ def device_tracking_scan(
     ``intensity_lines``. Semantics mirror
     :class:`hsip_tpu.track.tracker.FlameTracker` + the pipeline truncation
     checks (reference loop ``process_videos.py:1441-1527``), in float32.
+    ``unroll`` (static) is ``lax.scan``'s unroll factor; it changes the
+    compiled loop, never the outputs.
     """
     m, w = sobel_lines.shape
     cols = jax.lax.broadcasted_iota(jnp.int32, (w,), 0)
@@ -403,13 +407,6 @@ def device_tracking_scan(
         return new_state, outputs
 
     steps = jnp.arange(m, dtype=jnp.int32)
-    # Unrolling amortizes the TPU scan-loop dispatch overhead (~23% faster,
-    # 27 -> 21 us/step measured on v5e; saturates by 8). On CPU backends the
-    # 8x body only bloats compile time (the test suite runs there), so gate
-    # on the backend at trace time.
-    from ..utils.backend import is_tpu_backend
-
-    unroll = 8 if is_tpu_backend() else 1
     final_state, (finals, recs, posts, s0s, s1s) = jax.lax.scan(
         step,
         init,

@@ -1,49 +1,35 @@
-"""Pallas TPU kernel for the tracking state machine.
+"""Pallas (Triton) kernel for the tracking state machine.
 
-The ``lax.scan`` tracker (:mod:`hsip_tpu.track.device_scan`) pays a
-per-step loop overhead (~21 µs/step on v5e after an 8x unroll) that
-dominates single-video on-device time: the fused map kernel processes 2048
-frames in ~0.08 ms while the scan needs ~42 ms. This module runs the SAME
-state machine as one ``pallas_call`` with a sequential grid — each step's
-profile rows stream through VMEM blocks with the usual double-buffered
-DMA, and the whole scan is a single kernel launch.
+Under XLA the ``lax.scan`` tracker (:mod:`hsip_tpu.track.device_scan`)
+becomes a device while loop: every frame pays kernel launches and a
+loop-condition round trip, so a 2048-frame recording costs 2048 steps of
+launch latency rather than of work. This module runs the same state
+machine as ONE kernel launch, written for the GPU's block model:
 
-The state machine is VECTORIZED OVER SUBLANES: up to 8 videos ride the
-sublane axis of every (8, W) tile, tracker state lives in (8, 1) VMEM
-vectors (persistent scratch), and every select/compare/reduction is a VPU
-op — there are no scalar-unit serialization points in the step body. The
-grid is ``(ceil(V/8), ceil(M/K))`` — video GROUPS major, frame groups
-minor, with K frames unrolled per sequential grid step
-(``frames_per_step``) — so a library batch of 8 videos scans in the SAME
-wall-clock as one video. A single video takes the FOLDED layout instead
-of 7 inert pad sublanes: its profile row splits across the 8 sublanes as
-column groups, so every reduction touches one vreg instead of eight and
-each frame DMAs an eighth of the bytes. Per-video calibration, frame rate
-and displacement caps ride the sublane axis as resident (8, 1) blocks.
-
-Measured step latency (v5e, W=1024): ~2.2 µs/frame, FLAT across V=1..8,
-K=1..128, folded or not — ~5x the vmapped ``lax.scan`` at V=1. The step
-is LATENCY-bound, not throughput-bound: folding (8x less vector work and
-DMA) and register-batching the per-frame VMEM loads/stores each moved it
-<10%, so the residual is the state machine's serial dependency chain
-(detect → position → next frame's search window), which no layout change
-shortens. Both optimizations are kept — they shrink VMEM/DMA pressure at
-equal speed and win ~20% at V=8.
-
-Scope: all four detectors — 'combined' (the reference tracker —
-min-gradient + rightmost-Sobel) plus the three named profile methods
-('threshold' | 'half_maximum' | 'gradient', incl. the latter's TwoSum
-double-float tie-exactness) — at any width (profile rows pad to a lane
-multiple; the pad lanes sit outside every search window so the masked
-reductions never see them). The mesh-sharded library path runs this same
-kernel per device via ``shard_map``.
+* grid ``(V,)`` — one program per video; videos are independent, so they
+  run concurrently on separate SMs;
+* the frame loop runs inside the program (``lax.fori_loop``) and the
+  tracker state is a tuple of loop scalars held in registers;
+* each frame's profile row is loaded as one power-of-two block
+  (``block_w``) with a mask for the logical ``width``; columns past the
+  width sit outside every search window, so the masked reductions never
+  see them;
+* the next frame's rows and per-frame scalars are loaded one iteration
+  ahead (they depend only on the frame index, never on the state), so the
+  load latency overlaps the current frame's reductions;
+* the ``gradient`` detector reads its neighbour columns by offset
+  (index loads clamped into ``[0, width)``) and its one-sided window-edge
+  differences as scalar loads.
 
 Bit-parity contract: every float32 compare and reduction mirrors
-``device_tracking_scan``'s step function operation for operation (min/max
-reductions are exact; first-occurrence argmin is reproduced with an
-index-encoded second reduction), so outputs are REQUIRED to be
-bit-identical to the lax.scan backend — tested in interpret mode on CPU
-and on the real chip in the ``HSIP_TPU_CHIP=1`` tier.
+``device_tracking_scan``'s step function (min/max reductions are exact;
+``argmin``/``argmax`` take the first occurrence on both sides, and the
+``gradient`` detector keeps its TwoSum double-float carry and
+lexicographic ``(hi, lo)`` tie ordering). Triton's ``/`` on float32 is the
+approximate ``div.full.f32``; the velocity and velocity-drop divisions use
+``div.rn.f32`` instead, so they round like XLA's. Outputs are REQUIRED to
+be bit-identical to the lax.scan backend for all four detectors — tested
+in interpret mode on the CPU and compiled on the GPU by ``chip_smoke.py``.
 """
 
 from __future__ import annotations
@@ -54,406 +40,201 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-from .device_scan import DeviceScanResult
+from .device_scan import DeviceScanResult, _two_sum
 
 __all__ = [
-    "MAX_FRAMES_PER_STEP",
-    "default_frames_per_step",
+    "INTERPRET",
+    "kernel_enabled",
     "pallas_tracking_scan",
     "pallas_tracking_scan_batched",
-    "supports_pallas_scan",
 ]
 
-# Largest K the env knob honors; sweeps (tools/chip_autotune.py) must not
-# recommend beyond it — the pipeline would silently clamp the replay.
-MAX_FRAMES_PER_STEP = 128
+# Set by tests to run the kernel in Pallas interpret mode on the CPU; the
+# pipeline otherwise takes the kernel only on a GPU backend.
+INTERPRET = False
 
-
-def default_frames_per_step() -> int:
-    """Frames unrolled per grid step (K) used by the pipeline call sites.
-
-    Tunable via ``HSIP_PALLAS_SCAN_K`` so ``tools/chip_autotune.py`` sweeps
-    can be replayed against the full pipeline without code edits. The
-    v5e chip sweep of the sublane-vectorized kernel (2026-08-19, M=2048
-    W=1024, pipelined timing) is FLAT in K — 2.1-3.2 µs/step across
-    K∈[1,32] at every V∈{1,2,4,8}, best-K varying with run noise — so the
-    default stays at the flat region's center; the env knob replays a
-    sharper pick when one machine's sweep finds one. Any K is
-    bit-identical by contract (padding rows are inert).
-    """
-    import os
-
-    try:
-        k = int(os.environ.get("HSIP_PALLAS_SCAN_K", "8"))
-    except ValueError:
-        return 8
-    # Upper clamp: K statically unrolls the kernel body K times at trace
-    # time, so a typo'd huge value would stall every pipeline batch for
-    # minutes of tracing before the lax.scan fallback could even fire.
-    return min(max(1, k), MAX_FRAMES_PER_STEP)
-
-
-def batched_kernel_max_videos() -> int:
-    """Largest per-device video batch routed to the batched Pallas kernel.
-
-    The sublane-vectorized kernel packs 8 videos per (8, W) tile, so its
-    per-step cost is ~constant in V up to 8 — the v5e sweep
-    (``tools/chip_autotune.py --videos 1 2 4 8``, 2026-08-19, pipelined)
-    measured 2.4/2.1/2.2/2.3 µs/step at V=1/2/4/8 vs vmapped lax.scan's
-    22.7 µs (V=1) and 7.5 µs (V=8): the kernel wins at every measured V.
-    ``HSIP_PALLAS_BATCH_MAX_V`` replays a different machine's crossover
-    without code edits; both backends are bit-identical by contract so
-    routing is purely a throughput choice. Default matches the sweep's
-    largest measured batch (beyond 8 the grid adds sublane groups, which
-    Megacore parallelizes 2-way — re-sweep before raising).
-    """
-    import os
-
-    try:
-        return int(os.environ.get("HSIP_PALLAS_BATCH_MAX_V", "8"))
-    except ValueError:
-        return 8
-
+# Warps per program, chosen by measurement on an H100 (2048 frames,
+# W=1024, V=1/8/16, combined and gradient): 4 warps were fastest or tied
+# everywhere (1.30-1.45 us/step); 1 warp lost up to 1.7x at V>=8.
+NUM_WARPS = 4
 
 # numpy scalars (not jnp): jnp constants would be captured as traced
 # closure consts, which pallas_call rejects.
 _NEG = np.float32(-3.0e38)
 _POS = np.float32(3.0e38)
 _BIG_I = np.int32(2**30)
+# jnp.where's branches are typed int32 scalars: the Triton lowering of
+# select_n gives a weakly typed Python literal the predicate's type (i1).
+_NONE = np.int32(-1)
+_ONE = np.int32(1)
 
-# Videos per sublane group: the VPU tile is (8, 128), so 8 videos share
-# every vector op of the step body.
-_SUBLANES = 8
+# Per-frame flag bits (one int32 load per frame instead of two).
+_EMPTY, _PRIOR = 1, 2
 
-# int32 state slots — one (8, 1) sublane vector per slot, all slots side
-# by side in ONE (8, len) VMEM scratch (lane l = slot l; a full-ref
-# load/store moves all slots in one vector op). (No "stopped" slot: the
-# kernel never freezes — tracking runs past the advisory f32 stop, and the
-# write-once event latches key off stop_step staying -1 instead.)
-_LV_POS, _LV_FRAME, _P1_FRAME, _P1_POS = 0, 1, 2, 3
-_VL_OK, _VP_OK, _N_ENTRIES, _DDT = 4, 5, 6, 7
-_N_I32 = 8
-# f32 state slots.
-_V_LATEST, _V_PREV = 0, 1
-_N_F32 = 2
+_METHODS = ("combined", "threshold", "half_maximum", "gradient")
 
 
-def supports_pallas_scan(width: int, method: str) -> bool:
-    """The kernel covers all four detectors at any width (profile rows
-    pad to a lane multiple; the padded lanes sit outside every search
-    window, so the masked reductions never see them). ``width`` no longer
-    affects the answer — the parameter stays so call sites keep stating
-    the geometry they're gating, should a layout constraint ever return.
-    """
-    del width
-    return method in ("combined", "threshold", "half_maximum", "gradient")
+def kernel_enabled() -> bool:
+    """True when the pipeline should run this kernel: on a GPU backend,
+    or anywhere once a test has set :data:`INTERPRET`."""
+    from ..utils.backend import is_gpu_backend
+
+    return INTERPRET or is_gpu_backend()
 
 
-def _lane_width(width: int, folded: bool = False) -> int:
-    """Profile row width padded up to the TPU lane count (128) — or, for
-    the FOLDED V=1 layout, up to a full (8, 128) tile (1024) so the row
-    splits evenly into 8 sublane column-groups of a lane multiple each."""
-    unit = 128 * _SUBLANES if folded else 128
-    return -(-width // unit) * unit
+def _block_width(width: int) -> int:
+    return 1 << max(0, (width - 1).bit_length())
 
 
-def _first_col(mask, cols, axes=1):
-    """Smallest column index where ``mask`` holds (``_BIG_I`` when none).
-    ``axes=1``: per-sublane-video, ``(8, W) -> (8, 1)``. ``axes=(0, 1)``
-    (folded layout): over the whole tile, ``-> (1, 1)``."""
-    return jnp.min(
-        jnp.where(mask, cols, _BIG_I), axis=axes, keepdims=True
-    ).astype(jnp.int32)
-
-
-def _row_max(x, axes=1):
-    return jnp.max(x, axis=axes, keepdims=True)
-
-
-def _pl_threshold(prof, in_window, cols, fraction, min_intensity, axes=1):
-    """Kernel twin of ``device_scan._detect_window_threshold`` (first-
-    occurrence argmax done as an index-encoded reduction). With ``axes=1``
-    inputs ride the sublane axis — one row per video, ``(8, W) -> (8, 1)``;
-    with ``axes=(0, 1)`` (folded V=1 layout) the tile holds ONE video's
-    column groups and every reduction spans it, ``-> (1, 1)`` (broadcast
-    back against the (8, 1) state downstream)."""
-    masked = jnp.where(in_window, prof, _NEG)
-    peak = _row_max(masked, axes)
-    peak_idx = _first_col(masked == peak, cols, axes)
-    below = jnp.logical_not(in_window & (prof >= fraction * peak))
-    first_below = _first_col((cols >= peak_idx) & below, cols, axes)
-    window_end = _row_max(
-        jnp.where(in_window, cols, -1), axes
-    ).astype(jnp.int32)
-    edge = jnp.where(first_below > window_end, window_end, first_below - 1)
-    ok = (peak > min_intensity) & (edge >= peak_idx)
-    return jnp.where(ok, edge, jnp.int32(-1))
-
-
-def _pl_half_maximum(prof, in_window, cols, fraction, min_intensity, axes=1):
-    """Kernel twin of ``device_scan._detect_window_half_maximum``."""
-    masked = jnp.where(in_window, prof, _NEG)
-    peak = _row_max(masked, axes)
-    peak_idx = _first_col(masked == peak, cols, axes)
-    below = in_window & (cols >= peak_idx) & (prof < fraction * peak)
-    first_below = _first_col(below, cols, axes)
-    window_end = _row_max(
-        jnp.where(in_window, cols, -1), axes
-    ).astype(jnp.int32)
-    edge = jnp.where(first_below > window_end, window_end, first_below - 1)
-    ok = (peak > min_intensity) & (edge >= peak_idx)
-    return jnp.where(ok, edge, jnp.int32(-1))
-
-
-def _fold_neighbors(prof):
-    """Flat-order neighbor tiles for the FOLDED layout.
-
-    Folded flat index f = sublane*L + lane, so the left neighbor of lane 0
-    is the PREVIOUS sublane's last lane (and symmetrically on the right) —
-    a plain lane roll would wrap within each column group. Compose a
-    sublane roll for the group-boundary lanes. The wrap at the extreme
-    ends (flat cols 0 and 8L-1) is inert for the same reason as the
-    unfolded kernel's: those columns are outside every window or replaced
-    by the one-sided boundary differences.
-    """
-    S, L = prof.shape
-    lane = jax.lax.broadcasted_iota(jnp.int32, (S, L), 1)
-    left = jnp.where(
-        lane == 0,
-        pltpu.roll(pltpu.roll(prof, 1, 0), 1, 1),
-        pltpu.roll(prof, 1, 1),
+def _div_rn(a, b):
+    """IEEE round-to-nearest float32 division (XLA's rounding); Triton's
+    own ``/`` is the approximate ``div.full.f32``. The inline-asm op takes
+    blocks, not scalars, so the scalars go through shape (1,)."""
+    (q,) = plgpu.elementwise_inline_asm(
+        "div.rn.f32 $0, $1, $2;",
+        args=[jnp.broadcast_to(a, (1,)), jnp.broadcast_to(b, (1,))],
+        constraints="=r,r,r",
+        pack=1,
+        result_shape_dtypes=[jax.ShapeDtypeStruct((1,), jnp.float32)],
     )
-    right = jnp.where(
-        lane == L - 1,
-        pltpu.roll(pltpu.roll(prof, S - 1, 0), L - 1, 1),
-        pltpu.roll(prof, L - 1, 1),
-    )
-    return left, right
+    return jnp.max(q)
 
 
-def _pl_gradient(prof, in_window, cols, s0, s1, min_strength, width,
-                 axes=1):
-    """Kernel twin of ``device_scan._detect_window_gradient``.
-
-    Same TwoSum double-float carry and lexicographic (hi, lo) argmin —
-    bit-equivalent to the host's float64 differences of f32 values. The
-    neighbor shifts use ``pltpu.roll`` (lane rotation): the wrapped lanes
-    land only at columns that are either outside every window or replaced
-    by the one-sided boundary differences, so the wraparound is inert.
-    Per-video profile reads at the window edges are one-hot masked row
-    sums (exact: a single lane contributes per row). The folded layout
-    (``axes=(0, 1)``) swaps in flat-order neighbors and whole-tile
-    reductions/one-hot sums.
-    """
-    from .device_scan import _two_sum
-
-    if axes == 1:
-        wl = prof.shape[1]
-        left = pltpu.roll(prof, 1, 1)        # lane i <- prof[i-1]
-        right = pltpu.roll(prof, wl - 1, 1)  # lane i <- prof[i+1]
-    else:
-        left, right = _fold_neighbors(prof)
-    c_hi, c_lo = _two_sum(right, -left)
-    c_hi, c_lo = c_hi * 0.5, c_lo * 0.5  # *0.5 is exact
-
-    def at(idx):
-        idx = jnp.clip(idx, 0, width - 1)
-        return jnp.sum(
-            jnp.where(cols == idx, prof, 0.0), axis=axes, keepdims=True
-        )
-
-    l_hi, l_lo = _two_sum(at(s0 + 1), -at(s0))
-    r_hi, r_lo = _two_sum(at(s1 - 1), -at(s1 - 2))
-    g_hi = jnp.where(cols == s0, l_hi, c_hi)
-    g_lo = jnp.where(cols == s0, l_lo, c_lo)
-    g_hi = jnp.where(cols == s1 - 1, r_hi, g_hi)
-    g_lo = jnp.where(cols == s1 - 1, r_lo, g_lo)
-    g_hi = jnp.where(in_window, g_hi, _POS)
-    g_lo = jnp.where(in_window, g_lo, _POS)
-
-    m_hi = jnp.min(g_hi, axis=axes, keepdims=True)
-    tie = g_hi == m_hi
-    m_lo = jnp.min(jnp.where(tie, g_lo, _POS), axis=axes, keepdims=True)
-    pos = _first_col(tie & (g_lo == m_lo), cols, axes)
-
-    def _lt(threshold):
-        return (m_hi < threshold) | ((m_hi == threshold) & (m_lo < 0))
-
-    ok = _lt(-min_strength) & _lt(jnp.float32(0.0)) & (s1 - s0 >= 2)
-    return jnp.where(ok, pos, jnp.int32(-1))
-
-
-def _make_kernel(width, edge_margin_px, search_window_px, exit_margin_px,
-                 frames_per_step=1, lane_width=None, method="combined",
-                 folded=False):
-    # `w` (the LOGICAL width) drives every search/exit bound; the rows in
-    # VMEM are `wl` lanes wide, with pad lanes masked out by `in_window`
-    # (s1 <= w - edge_margin < w <= wl, so cols >= w never enter a
-    # window and never win a reduction).
-    #
-    # `folded` (the V=1 fast layout): the profile tile's 8 sublanes hold
-    # ONE video's row split into 8 column groups of wl/8 lanes — every
-    # reduction spans the whole tile (1 vreg per vector op instead of 8,
-    # and 8x less DMA per frame than a sublane-video tile with 7 inert
-    # rows). The step machinery is IDENTICAL: whole-tile reductions give
-    # (1, 1) candidates that broadcast against the (8, 1) state vectors
-    # (every sublane carries the same video's state), so outputs equal the
-    # unfolded kernel's bit for bit — host reads sublane 0.
-    w = width
-    wl = lane_width if lane_width is not None else width
-    K = frames_per_step
-    S = _SUBLANES
-    raxes = (0, 1) if folded else 1
-
-    # 'combined' consumes two profile rows (sobel, gradient); the named
-    # methods consume one (intensity) — the kernel arity follows.
+def _make_kernel(*, m, width, block_w, edge_margin_px, search_window_px,
+                 exit_margin_px, method, interpret):
     n_prof = 2 if method == "combined" else 1
+    w = width
+    margin = np.int32(edge_margin_px)
+    w_in = np.int32(width - edge_margin_px)
 
-    def kernel(pf, fidx_ref, empty_ref, prior_ref,
-               cal_ref, fr_ref, md_ref, *rest):
-        prof_refs = rest[:n_prof]
+    def div(a, b):
+        # Interpret mode runs on the CPU, where '/' already rounds to nearest.
+        return a / b if interpret else _div_rn(a, b)
+
+    def kernel(params_ref, fidx_ref, flags_ref, cal_ref, fr_ref, md_ref,
+               *refs):
+        prof_refs = refs[:n_prof]
         (out_final, out_rec, out_post, out_s0, out_s1,
-         out_stop_step, out_stop_reason, out_ddt, out_clear_vc,
-         st_i, st_f) = rest[n_prof:]
-        i = pl.program_id(1)
+         out_latch) = refs[n_prof:]
+        v = pl.program_id(0)
+        cols = jax.lax.broadcasted_iota(jnp.int32, (block_w,), 0)
+        col_ok = cols < w
+        min_grad = params_ref[0]
+        sobel_frac = params_ref[1]
+        ddt_jump = params_ref[2]
+        method_frac = params_ref[3]
+        calibration = cal_ref[v]
+        frame_rate = fr_ref[v]
+        max_disp = md_ref[v]
 
-        @pl.when(i == 0)
-        def _init():
-            slot = jax.lax.broadcasted_iota(jnp.int32, (S, _N_I32), 1)
-            st_i[...] = jnp.where(
-                (slot == _LV_POS) | (slot == _P1_POS) | (slot == _DDT),
-                jnp.int32(-1), jnp.int32(0),
+        def fetch(j):
+            """Frame j's inputs; independent of the tracker state."""
+            rows = tuple(
+                plgpu.load(r.at[v, j, pl.ds(0, block_w)], mask=col_ok,
+                           other=0.0)
+                for r in prof_refs
             )
-            st_f[...] = jnp.zeros((S, _N_F32), jnp.float32)
-            neg1 = jnp.full((S, 1), -1, jnp.int32)
-            out_stop_step[0, 0] = neg1
-            out_stop_reason[0, 0] = jnp.zeros((S, 1), jnp.int32)
-            out_ddt[0, 0] = neg1
-            out_clear_vc[0, 0] = neg1
+            if method == "gradient":
+                # Neighbour columns by offset, clamped into the row (the
+                # clamped edge values are never read: columns 0 and w-1
+                # only enter a window as its one-sided boundary columns).
+                p = prof_refs[0]
+                rows += (p[v, j, jnp.clip(cols - 1, 0, w - 1)],
+                         p[v, j, jnp.clip(cols + 1, 0, w - 1)])
+            return rows, fidx_ref[v, j], flags_ref[v, j]
 
-        min_grad = pf[0]
-        sobel_frac = pf[1]
-        ddt_jump = pf[2]
-        method_frac = pf[3]
-        calibration = cal_ref[0, 0]   # (8, 1) f32 — per sublane video
-        frame_rate = fr_ref[0, 0]     # (8, 1) f32
-        max_disp = md_ref[0, 0]       # (8, 1) i32
-        if folded:
-            # Column index of folded element [s, l] = s*(wl/8) + l.
-            Lf = wl // S
-            cols = (
-                jax.lax.broadcasted_iota(jnp.int32, (S, Lf), 0) * Lf
-                + jax.lax.broadcasted_iota(jnp.int32, (S, Lf), 1)
-            )
-        else:
-            cols = jax.lax.broadcasted_iota(jnp.int32, (S, wl), 1)
+        def detect(j, rows, s0, s1, in_window):
+            if method == "combined":
+                sob, grad = rows
+                grad_m = jnp.where(in_window, grad, _POS)
+                gmin = jnp.min(grad_m)
+                pos_g = jnp.argmin(grad_m).astype(jnp.int32)
+                g_ok = gmin < -min_grad
+                abs_sob = jnp.where(in_window, jnp.abs(sob), _NEG)
+                smax = jnp.max(abs_sob)
+                above = in_window & (abs_sob > smax * sobel_frac)
+                pos_s = jnp.max(jnp.where(above, cols, _NONE))
+                s_ok = (smax > min_grad) & (pos_s >= 0)
+                return jnp.maximum(jnp.where(g_ok, pos_g, _NONE),
+                                   jnp.where(s_ok, pos_s, _NONE))
+            # Largest window column: the window is [s0, s1) clipped to the
+            # row (integer arithmetic, equal to the reference's max-reduce).
+            hi = jnp.minimum(s1, w)
+            window_end = jnp.where(hi > jnp.maximum(s0, 0), hi - 1, _NONE)
+            if method in ("threshold", "half_maximum"):
+                (prof,) = rows
+                masked = jnp.where(in_window, prof, _NEG)
+                peak = jnp.max(masked)
+                peak_idx = jnp.argmax(masked).astype(jnp.int32)
+                level = method_frac * peak
+                if method == "threshold":
+                    below = jnp.logical_not(in_window & (prof >= level))
+                    below = (cols >= peak_idx) & below
+                else:
+                    below = in_window & (cols >= peak_idx) & (prof < level)
+                first_below = jnp.min(jnp.where(below, cols, _BIG_I))
+                edge = jnp.where(first_below > window_end, window_end,
+                                 first_below - 1)
+                ok = (peak > min_grad) & (edge >= peak_idx)
+                return jnp.where(ok, edge, _NONE)
+            # gradient: TwoSum double-float differences, lexicographic argmin
+            prof, left, right = rows
+            c_hi, c_lo = _two_sum(right, -left)
+            c_hi, c_lo = c_hi * 0.5, c_lo * 0.5  # *0.5 is exact
+            p = prof_refs[0]
 
-        # State loads ONCE per grid step; the K unrolled frames thread it
-        # through registers and store once at the end.
-        sti = st_i[...]
-        stf = st_f[...]
+            def at(idx):
+                return p[v, j, jnp.clip(idx, 0, w - 1)]
 
-        def _sl_i(slot):
-            return sti[:, slot:slot + 1]
+            l_hi, l_lo = _two_sum(at(s0 + 1), -at(s0))
+            r_hi, r_lo = _two_sum(at(s1 - 1), -at(s1 - 2))
+            g_hi = jnp.where(cols == s0, l_hi, c_hi)
+            g_lo = jnp.where(cols == s0, l_lo, c_lo)
+            g_hi = jnp.where(cols == s1 - 1, r_hi, g_hi)
+            g_lo = jnp.where(cols == s1 - 1, r_lo, g_lo)
+            g_hi = jnp.where(in_window, g_hi, _POS)
+            g_lo = jnp.where(in_window, g_lo, _POS)
+            m_hi = jnp.min(g_hi)
+            tie = g_hi == m_hi
+            m_lo = jnp.min(jnp.where(tie, g_lo, _POS))
+            pos = jnp.min(jnp.where(tie & (g_lo == m_lo), cols, _BIG_I))
 
-        lv_pos, lv_frame = _sl_i(_LV_POS), _sl_i(_LV_FRAME)
-        p1_frame, p1_pos = _sl_i(_P1_FRAME), _sl_i(_P1_POS)
-        vl_ok, vp_ok = _sl_i(_VL_OK), _sl_i(_VP_OK)
-        n_entries, ddt = _sl_i(_N_ENTRIES), _sl_i(_DDT)
-        v_latest = stf[:, _V_LATEST:_V_LATEST + 1]
-        v_prev = stf[:, _V_PREV:_V_PREV + 1]
-        stop_step = out_stop_step[0, 0]
-        stop_reason = out_stop_reason[0, 0]
-        clear_vc = out_clear_vc[0, 0]
+            def lt(threshold):
+                return (m_hi < threshold) | ((m_hi == threshold) & (m_lo < 0))
 
-        # Per-step scalars load ONCE per grid step ((1, K, 8, 1) blocks)
-        # and slice in registers; per-frame out rows accumulate in
-        # registers and store once at the end. The step body's critical
-        # path is LATENCY-bound (folding cut vector work and DMA 8x with
-        # no time change), so per-frame VMEM round-trips are minimized.
-        fidx_all = fidx_ref[...]
-        empty_all = empty_ref[...]
-        prior_all = prior_ref[...]
-        acc_final, acc_rec, acc_post, acc_s0, acc_s1 = [], [], [], [], []
+            ok = lt(-min_grad) & lt(np.float32(0.0)) & (s1 - s0 >= 2)
+            return jnp.where(ok, pos, _NONE)
 
-        # K frames per grid step (statically unrolled): amortizes the
-        # per-step grid + DMA overhead; K=1 is the plain per-frame scan.
-        for j in range(K):
-            step_idx = i * K + j
-            frame = fidx_all[0, j]      # (8, 1) i32
-            is_empty = empty_all[0, j]  # (8, 1) i32
-            prior_ok = prior_all[0, j]  # (8, 1) i32
-
+        def step(j, carry):
+            state, (rows, frame, flags) = carry
+            nxt = fetch(jnp.minimum(j + 1, m - 1))
+            (lv_pos, lv_frame, p1_frame, p1_pos, vl_ok, vp_ok, n_entries,
+             ddt, v_latest, v_prev, stop_step, stop_reason, clear_vc) = state
             # Tracking continues past the f32 stop decision (advisory only):
-            # the authoritative exit/velocity-drop truncation is recomputed
-            # on host in float64 from the integer positions — the f32 and
-            # f64 gates can disagree at exact compare boundaries, and a
-            # frozen scan would lose the rows the f64 decision still needs.
-            active = is_empty == 0
+            # the authoritative truncation is recomputed on host in float64
+            # from the integer positions (build_device_scan_output).
+            active = (flags & _EMPTY) == 0
+            prior_ok = (flags & _PRIOR) != 0
 
             # ---- search bounds (velocity-constrained, monotone right) ----
             no_hist = lv_pos < 0
             frames_elapsed = jnp.maximum(1, frame - lv_frame)
-            s0 = jnp.where(no_hist, edge_margin_px, lv_pos)
+            s0 = jnp.where(no_hist, margin, lv_pos)
             s1 = jnp.where(
                 no_hist,
-                w - edge_margin_px,
+                w_in,
                 jnp.minimum(
-                    w - edge_margin_px,
+                    w_in,
                     lv_pos + max_disp * frames_elapsed + search_window_px,
                 ),
             )
             window_nonempty = s1 > s0
-
-            # ---- candidates (method chosen statically at build time) ----
-            # (8, 1) bounds broadcast against (8, wl) columns: every video
-            # in the sublane group evaluates its own window in one VPU op.
             in_window = (cols >= s0) & (cols < s1)
-            if method == "combined":
-                sob = prof_refs[0][0, j]    # (8, W): sublane = video, or
-                grad = prof_refs[1][0, j]   # (8, W/8) column groups folded
 
-                grad_m = jnp.where(in_window, grad, _POS)
-                gmin = jnp.min(grad_m, axis=raxes, keepdims=True)
-                # First-occurrence argmin as an index reduction (exact).
-                pos_g = jnp.min(
-                    jnp.where(grad_m == gmin, cols, _BIG_I),
-                    axis=raxes, keepdims=True,
-                ).astype(jnp.int32)
-                g_ok = window_nonempty & (gmin < -min_grad)
-
-                abs_sob = jnp.where(in_window, jnp.abs(sob), _NEG)
-                smax = jnp.max(abs_sob, axis=raxes, keepdims=True)
-                above = in_window & (abs_sob > smax * sobel_frac)
-                pos_s = jnp.max(
-                    jnp.where(above, cols, -1), axis=raxes, keepdims=True
-                ).astype(jnp.int32)
-                s_ok = window_nonempty & (smax > min_grad) & (pos_s >= 0)
-
-                final = jnp.maximum(
-                    jnp.where(g_ok, pos_g, -1), jnp.where(s_ok, pos_s, -1)
-                )
-            elif method == "threshold":
-                final = _pl_threshold(
-                    prof_refs[0][0, j], in_window, cols, method_frac,
-                    min_grad, raxes,
-                )
-            elif method == "half_maximum":
-                final = _pl_half_maximum(
-                    prof_refs[0][0, j], in_window, cols, method_frac,
-                    min_grad, raxes,
-                )
-            elif method == "gradient":
-                final = _pl_gradient(
-                    prof_refs[0][0, j], in_window, cols, s0, s1, min_grad,
-                    w, raxes,
-                )
-            else:
-                raise ValueError(f"Unknown detection method: {method!r}")
-            final = jnp.where(window_nonempty, final, -1)
-            final = jnp.where(active & (prior_ok != 0), final, -1)
+            final = detect(j, rows, s0, s1, in_window)
+            final = jnp.where(window_nonempty & active & prior_ok, final, _NONE)
             detected = active & (final >= 0)
 
             # ---- history append (every active step) ----
@@ -464,23 +245,22 @@ def _make_kernel(width, edge_margin_px, search_window_px, exit_margin_px,
 
             # ---- velocities (mirrors FlameTracker._update_velocities) ----
             have_prev_entry = active & (p1_pos >= 0) & detected
-            dt = (frame - p1_frame).astype(jnp.float32) / frame_rate
+            dt = div((frame - p1_frame).astype(jnp.float32), frame_rate)
             vel_ok = have_prev_entry & (dt > 0) & (frame_rate > 0)
             v1 = jnp.where(
                 vel_ok,
-                (final - p1_pos).astype(jnp.float32) * calibration / dt,
-                jnp.float32(0.0),
+                div((final - p1_pos).astype(jnp.float32) * calibration, dt),
+                np.float32(0.0),
             )
             new_v_prev = jnp.where(vel_ok, v_latest, v_prev)
             new_vp_ok = jnp.where(vel_ok, vl_ok, vp_ok)
             new_v_latest = jnp.where(vel_ok, v1, v_latest)
-            new_vl_ok = jnp.where(vel_ok, 1, vl_ok)
-            new_n_entries = n_entries + jnp.where(vel_ok, 1, 0)
+            new_vl_ok = jnp.where(vel_ok, _ONE, vl_ok)
+            new_n_entries = jnp.where(vel_ok, n_entries + 1, n_entries)
 
             # ---- DDT latch ----
-            ddt_hit = (
-                vel_ok & (ddt < 0) & (vl_ok != 0) & (v1 - v_latest > ddt_jump)
-            )
+            ddt_hit = (vel_ok & (ddt < 0) & (vl_ok != 0)
+                       & (v1 - v_latest > ddt_jump))
             new_ddt = jnp.where(ddt_hit, frame, ddt)
 
             # ---- exit / velocity-drop truncation ----
@@ -493,64 +273,43 @@ def _make_kernel(width, edge_margin_px, search_window_px, exit_margin_px,
                 & vel_now_ok
                 & prev_ok
                 & (new_v_prev > 100.0)
-                & ((new_v_prev - new_v_latest) / new_v_prev > 0.5)
+                & (div(new_v_prev - new_v_latest, new_v_prev) > 0.5)
             )
             stopped_now = exit_hit | vdrop_hit
-
             recorded = detected & jnp.logical_not(stopped_now)
             is_post = (new_ddt >= 0) & (frame >= new_ddt)
 
-            # ---- per-step outputs (accumulated; ONE store per ref below)
-            acc_final.append(jnp.broadcast_to(final, (S, 1)))
-            acc_rec.append(jnp.broadcast_to(recorded.astype(jnp.int32),
-                                            (S, 1)))
-            acc_post.append(jnp.broadcast_to(is_post.astype(jnp.int32),
-                                             (S, 1)))
-            acc_s0.append(jnp.broadcast_to(s0, (S, 1)))
-            acc_s1.append(jnp.broadcast_to(s1, (S, 1)))
+            out_final[v, j] = final
+            out_rec[v, j] = recorded.astype(jnp.int32)
+            out_post[v, j] = is_post.astype(jnp.int32)
+            out_s0[v, j] = s0
+            out_s1[v, j] = s1
 
-            # ---- event latches (register-threaded, write-once) ----
+            # ---- write-once event latches ----
             first_stop = stopped_now & (stop_step < 0)
-            stop_step = jnp.where(first_stop, step_idx, stop_step)
-            stop_reason = jnp.where(
-                first_stop, jnp.where(exit_hit, 1, 2), stop_reason
+            new_stop_step = jnp.where(first_stop, j, stop_step)
+            new_stop_reason = jnp.where(
+                first_stop, jnp.where(exit_hit, _ONE, np.int32(2)), stop_reason
             )
-            clear_vc = jnp.where(
-                first_stop & (new_n_entries >= 2),
-                new_n_entries - 2,
+            new_clear_vc = jnp.where(
+                first_stop & (new_n_entries >= 2), new_n_entries - 2,
                 clear_vc,
             )
+            state = (new_lv_pos, new_lv_frame, new_p1_frame, new_p1_pos,
+                     new_vl_ok, new_vp_ok, new_n_entries, new_ddt,
+                     new_v_latest, new_v_prev, new_stop_step,
+                     new_stop_reason, new_clear_vc)
+            return state, nxt
 
-            # ---- state rollover into the next unrolled frame ----
-            lv_pos, lv_frame = new_lv_pos, new_lv_frame
-            p1_frame, p1_pos = new_p1_frame, new_p1_pos
-            vl_ok, vp_ok = new_vl_ok, new_vp_ok
-            n_entries, ddt = new_n_entries, new_ddt
-            v_latest, v_prev = new_v_latest, new_v_prev
-
-        # ---- per-frame output stores, ONE per ref per grid step ----
-        out_final[0] = jnp.stack(acc_final)
-        out_rec[0] = jnp.stack(acc_rec)
-        out_post[0] = jnp.stack(acc_post)
-        out_s0[0] = jnp.stack(acc_s0)
-        out_s1[0] = jnp.stack(acc_s1)
-
-        # ---- state/latch stores ONCE per grid step ----
-        lanes_i = jax.lax.broadcasted_iota(jnp.int32, (S, _N_I32), 1)
-        new_sti = jnp.where(lanes_i == _LV_POS, lv_pos, 0)
-        for slot, val in (
-            (_LV_FRAME, lv_frame), (_P1_FRAME, p1_frame),
-            (_P1_POS, p1_pos), (_VL_OK, vl_ok), (_VP_OK, vp_ok),
-            (_N_ENTRIES, n_entries), (_DDT, ddt),
-        ):
-            new_sti = jnp.where(lanes_i == slot, val, new_sti)
-        st_i[...] = new_sti
-        lanes_f = jax.lax.broadcasted_iota(jnp.int32, (S, _N_F32), 1)
-        st_f[...] = jnp.where(lanes_f == _V_LATEST, v_latest, v_prev)
-        out_stop_step[0, 0] = stop_step
-        out_stop_reason[0, 0] = stop_reason
-        out_ddt[0, 0] = ddt
-        out_clear_vc[0, 0] = clear_vc
+        i32 = jnp.int32
+        init = (i32(-1), i32(0), i32(0), i32(-1), i32(0), i32(0), i32(0),
+                i32(-1), np.float32(0.0), np.float32(0.0), i32(-1), i32(0),
+                i32(-1))
+        state, _ = jax.lax.fori_loop(0, m, step, (init, fetch(0)))
+        out_latch[v, 0] = state[10]   # stop_step
+        out_latch[v, 1] = state[11]   # stop_reason
+        out_latch[v, 2] = state[7]    # ddt_frame
+        out_latch[v, 3] = state[12]   # clear_vc_entry
 
     return kernel
 
@@ -563,9 +322,8 @@ def _make_kernel(width, edge_margin_px, search_window_px, exit_margin_px,
         "search_window_px",
         "exit_margin_px",
         "interpret",
-        "frames_per_step",
         "method",
-        "fold",
+        "num_warps",
     ),
 )
 def pallas_tracking_scan_batched(
@@ -585,238 +343,81 @@ def pallas_tracking_scan_batched(
     search_window_px: int = 100,
     exit_margin_px: int = 15,
     interpret: bool = False,
-    frames_per_step: int = 1,
     method: str = "combined",
     intensity_lines: jnp.ndarray = None,   # (V, M, W) f32 — named methods
     method_fraction: jnp.ndarray = 0.5,    # threshold/half_maximum fraction
-    fold: bool = None,
+    num_warps: int = NUM_WARPS,
 ) -> DeviceScanResult:
-    """Whole-batch tracking scan: one kernel, grid (V, ceil(M/K)), state
-    resets per video. Result fields are (V, M) / (V,) — the same structure
+    """Whole-batch tracking scan: one kernel, one program per video, state
+    reset per video. Result fields are (V, M) / (V,) — the same structure
     as ``vmap(device_tracking_scan)``, to which it is bit-identical.
-
-    ``fold`` (static; default auto = fold iff V == 1,
-    ``HSIP_PALLAS_FOLD=0`` disables): the V=1 FOLDED layout splits the one
-    video's profile row across all 8 sublanes (column groups) instead of
-    padding 7 inert sublane videos — whole-tile reductions touch 1 vreg
-    per vector op instead of 8 and each frame DMAs wl floats instead of
-    8·wl (VERDICT r3 #6; per-sublane *dynamic window* slices are not
-    expressible on TPU — no per-sublane lane gather — and a shared-window
-    slice would need a full-width fallback for pre-detection frames;
-    folding needs neither). Bit-identical by the same contract as
-    everything else here.
 
     ``method`` (static) selects the detector, mirroring
     :func:`hsip_tpu.track.device_scan.device_tracking_scan`: 'combined'
     consumes the sobel/gradient rows; the named profile methods
     ('threshold' | 'half_maximum' | 'gradient') consume
     ``intensity_lines`` and ignore the sobel/gradient arguments.
-
-    ``frames_per_step`` (K) statically unrolls K frames per grid step to
-    amortize grid/DMA overhead; the frame axis pads to a K multiple with
-    inert (empty) rows, which never touch state.
     """
     n_videos, m, w = sobel_lines.shape
     if w != width:
         raise ValueError(f"width {width} != profile width {w}")
     if m == 0 or n_videos == 0:
         raise ValueError("empty scan (caller handles zero-size batches)")
+    if method not in _METHODS:
+        raise ValueError(f"Unknown detection method: {method!r}")
     if method == "combined":
         profiles = [sobel_lines, gradient_lines]
     else:
         if intensity_lines is None:
             raise ValueError(f"method {method!r} requires intensity_lines")
         profiles = [intensity_lines]
-    K = int(frames_per_step)
-    m_pad = -(-m // K) * K
-    if m_pad != m:
-        pad = m_pad - m
-        frame_indices = jnp.pad(frame_indices, ((0, 0), (0, pad)))
-        profiles = [jnp.pad(p, ((0, 0), (0, pad), (0, 0))) for p in profiles]
-        # Inert padding: empty rows advance nothing in the state machine.
-        empty = jnp.pad(empty, ((0, 0), (0, pad)), constant_values=True)
-        has_prior = jnp.pad(has_prior, ((0, 0), (0, pad)),
-                            constant_values=True)
-    if fold is None:
-        import os
+    profiles = [jnp.asarray(p, jnp.float32) for p in profiles]
 
-        fold = (n_videos == 1
-                and os.environ.get("HSIP_PALLAS_FOLD", "1") != "0")
-    if fold and n_videos != 1:
-        raise ValueError("fold=True requires a single-video batch")
-    # Lane padding: rows widen to a 128 multiple so any width lowers; the
-    # pad lanes are outside every search window (masked by column index
-    # against the LOGICAL width's bounds), so reductions never see them.
-    # The folded layout pads to a 1024 multiple so the row splits into 8
-    # equal lane-multiple column groups.
-    wl = _lane_width(w, folded=fold)
-    if wl != w:
-        profiles = [
-            jnp.pad(p, ((0, 0), (0, 0), (0, wl - w))) for p in profiles
-        ]
-
-    params_f = jnp.stack([
+    params = jnp.stack([
         jnp.asarray(min_gradient_strength, jnp.float32),
         jnp.asarray(sobel_threshold_fraction, jnp.float32),
         jnp.asarray(ddt_velocity_jump, jnp.float32),
         jnp.asarray(method_fraction, jnp.float32),
     ])
+    flags = (jnp.where(jnp.asarray(empty), _EMPTY, 0)
+             | jnp.where(jnp.asarray(has_prior), _PRIOR, 0)).astype(jnp.int32)
 
-    S = _SUBLANES
-    if fold:
-        # ---- FOLDED V=1 layout: the 8 sublanes hold the ONE video's row
-        # split into 8 column groups (tile (8, wl/8)); per-step scalars
-        # broadcast identically across sublanes, so every sublane carries
-        # the same video's state and sublane 0 is the answer. ----
-        n_groups, v_pad, vp = 1, 0, 1
-        tile_lanes = wl // S
-
-        def group_scalar(x, dtype):
-            x = jnp.asarray(x, dtype).reshape(1)
-            return jnp.broadcast_to(x[:, None, None, None], (1, 1, S, 1))
-
-        def group_step(x, dtype):
-            return jnp.broadcast_to(
-                x.astype(dtype)[:, :, None, None], (1, m_pad, S, 1)
-            )
-
-        prof4 = [p.reshape(1, m_pad, S, tile_lanes) for p in profiles]
-    else:
-        # ---- sublane grouping: pad V to a multiple of 8, 8 videos per
-        # (8, W) tile. Pad videos are inert (all-empty, so their state
-        # never leaves init) and sliced away below. ----
-        v_pad = (-n_videos) % S
-        vp = n_videos + v_pad
-        n_groups = vp // S
-        tile_lanes = wl
-        if v_pad:
-            frame_indices = jnp.pad(frame_indices, ((0, v_pad), (0, 0)))
-            empty = jnp.pad(empty, ((0, v_pad), (0, 0)),
-                            constant_values=True)
-            has_prior = jnp.pad(has_prior, ((0, v_pad), (0, 0)),
-                                constant_values=True)
-            profiles = [jnp.pad(p, ((0, v_pad), (0, 0), (0, 0)))
-                        for p in profiles]
-
-        def group_scalar(x, dtype):
-            # (V,) per-video param -> (G, 1, 8, 1) resident sublane vectors.
-            x = jnp.asarray(x, dtype).reshape(n_videos)
-            x = jnp.pad(x, (0, v_pad), constant_values=1)
-            return x.reshape(n_groups, 1, S, 1)
-
-        def group_step(x, dtype):
-            # (Vp, M) per-step scalar -> (G, M, 8, 1): sublane = video.
-            return jnp.transpose(
-                x.astype(dtype).reshape(n_groups, S, m_pad), (0, 2, 1)
-            ).reshape(n_groups, m_pad, S, 1)
-
-        # (Vp, M, wl) -> (G, M, 8, wl): one transpose, XLA keeps the lanes.
-        prof4 = [
-            jnp.transpose(
-                p.reshape(n_groups, S, m_pad, wl), (0, 2, 1, 3)
-            )
-            for p in profiles
-        ]
-
-    cal = group_scalar(calibration, jnp.float32)
-    fr = group_scalar(frame_rate, jnp.float32)
-    md = group_scalar(max_displacement_px, jnp.int32)
-    fidx = group_step(frame_indices, jnp.int32)
-    empty_i = group_step(empty, jnp.int32)
-    prior_i = group_step(has_prior, jnp.int32)
-
-    kernel = _make_kernel(width, edge_margin_px, search_window_px,
-                          exit_margin_px, frames_per_step=K,
-                          lane_width=wl, method=method, folded=fold)
-
-    # Lowering rules (enforced by Mosaic): blocks' last two dims must
-    # equal the array's — hence (G, M, 8, 1) step arrays with (1, K, 8, 1)
-    # VMEM blocks (vector loads/stores; the step body never touches SMEM).
-    step_vec = pl.BlockSpec((1, K, S, 1), lambda g, i, *pf: (g, i, 0, 0))
-    resident = pl.BlockSpec((1, 1, S, 1), lambda g, i, *pf: (g, 0, 0, 0))
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,  # global thresholds
-        grid=(n_groups, m_pad // K),
-        in_specs=[
-            step_vec,   # frame_indices
-            step_vec,   # empty
-            step_vec,   # has_prior
-            resident,   # calibration
-            resident,   # frame_rate
-            resident,   # max_displacement
-        ] + [
-            # sobel+gradient ('combined') or intensity (named methods)
-            pl.BlockSpec((1, K, S, tile_lanes),
-                         lambda g, i, *pf: (g, i, 0, 0))
-            for _ in prof4
-        ],
-        out_specs=[
-            step_vec,   # final
-            step_vec,   # recorded
-            step_vec,   # is_post
-            step_vec,   # s0
-            step_vec,   # s1
-            # Per-video event latches: resident for a group's whole pass.
-            resident,   # stop_step
-            resident,   # stop_reason
-            resident,   # ddt_frame
-            resident,   # clear_vc_entry
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((S, _N_I32), jnp.int32),
-            pltpu.VMEM((S, _N_F32), jnp.float32),
-        ],
+    kernel = _make_kernel(
+        m=m, width=width, block_w=_block_width(width),
+        edge_margin_px=edge_margin_px, search_window_px=search_window_px,
+        exit_margin_px=exit_margin_px, method=method, interpret=interpret,
     )
-    # Video GROUPS are independent (state is per-group scratch), so the
-    # group axis may split across Megacore TensorCores; the frame axis
-    # must stay sequential ('arbitrary') — it carries the tracker state.
-    compiler_params = pltpu.CompilerParams(
-        dimension_semantics=("parallel", "arbitrary"),
-    )
-    i32 = jnp.int32
-    step_shape = jax.ShapeDtypeStruct((n_groups, m_pad, S, 1), i32)
-    latch_shape = jax.ShapeDtypeStruct((n_groups, 1, S, 1), i32)
-    (finals, recs, posts, s0s, s1s,
-     stop_step, stop_reason, ddt_frame, clear_vc) = pl.pallas_call(
+    step_shape = jax.ShapeDtypeStruct((n_videos, m), jnp.int32)
+    (finals, recs, posts, s0s, s1s, latch) = pl.pallas_call(
         kernel,
-        grid_spec=grid_spec,
-        out_shape=[step_shape] * 5 + [latch_shape] * 4,
+        grid=(n_videos,),
+        out_shape=[step_shape] * 5 + [
+            jax.ShapeDtypeStruct((n_videos, 4), jnp.int32)
+        ],
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=num_warps,
+                                             num_stages=1),
         interpret=interpret,
-        compiler_params=compiler_params,
-    )(params_f, fidx, empty_i, prior_i, cal, fr, md, *prof4)
-
-    if fold:
-        def ungroup_step(x):
-            # (1, M, 8, 1), every sublane identical -> (1, m)
-            return x[0, :, 0, 0].reshape(1, m_pad)[:, :m]
-
-        def ungroup_latch(x):
-            return x.reshape(S)[:1]
-    else:
-        def ungroup_step(x):
-            # (G, M, 8, 1) -> (V, m)
-            return jnp.transpose(x[..., 0], (0, 2, 1)).reshape(
-                vp, m_pad
-            )[:n_videos, :m]
-
-        def ungroup_latch(x):
-            return x.reshape(vp)[:n_videos]
-
-    finals = ungroup_step(finals)
-    recs = ungroup_step(recs)
-    posts = ungroup_step(posts)
-    s0s = ungroup_step(s0s)
-    s1s = ungroup_step(s1s)
+        name="hsip_tracking_scan",
+    )(
+        params,
+        jnp.asarray(frame_indices, jnp.int32),
+        flags,
+        jnp.asarray(calibration, jnp.float32).reshape(n_videos),
+        jnp.asarray(frame_rate, jnp.float32).reshape(n_videos),
+        jnp.asarray(max_displacement_px, jnp.int32).reshape(n_videos),
+        *profiles,
+    )
     return DeviceScanResult(
         final_position=finals,
         recorded=recs.astype(bool),
         is_post_ddt=posts.astype(bool),
         search_start=s0s,
         search_end=s1s,
-        stop_step=ungroup_latch(stop_step),
-        stop_reason=ungroup_latch(stop_reason),
-        ddt_frame=ungroup_latch(ddt_frame),
-        clear_vc_entry=ungroup_latch(clear_vc),
+        stop_step=latch[:, 0],
+        stop_reason=latch[:, 1],
+        ddt_frame=latch[:, 2],
+        clear_vc_entry=latch[:, 3],
     )
 
 
@@ -837,7 +438,6 @@ def pallas_tracking_scan(
     search_window_px: int = 100,
     exit_margin_px: int = 15,
     interpret: bool = False,
-    frames_per_step: int = 1,
     method: str = "combined",
     intensity_lines: jnp.ndarray = None,   # (M, W) f32 — named methods
     method_fraction: jnp.ndarray = 0.5,
@@ -851,11 +451,11 @@ def pallas_tracking_scan(
     """
     m = frame_indices.shape[0]
     res = pallas_tracking_scan_batched(
-        frame_indices.reshape(1, m),
-        sobel_lines[None],
-        gradient_lines[None],
-        empty.reshape(1, m),
-        has_prior.reshape(1, m),
+        jnp.asarray(frame_indices).reshape(1, m),
+        jnp.asarray(sobel_lines)[None],
+        jnp.asarray(gradient_lines)[None],
+        jnp.asarray(empty).reshape(1, m),
+        jnp.asarray(has_prior).reshape(1, m),
         width=width,
         min_gradient_strength=min_gradient_strength,
         sobel_threshold_fraction=sobel_threshold_fraction,
@@ -869,21 +469,11 @@ def pallas_tracking_scan(
         search_window_px=search_window_px,
         exit_margin_px=exit_margin_px,
         interpret=interpret,
-        frames_per_step=frames_per_step,
         method=method,
         intensity_lines=(
-            None if intensity_lines is None else intensity_lines[None]
+            None if intensity_lines is None
+            else jnp.asarray(intensity_lines)[None]
         ),
         method_fraction=method_fraction,
     )
-    return DeviceScanResult(
-        final_position=res.final_position[0],
-        recorded=res.recorded[0],
-        is_post_ddt=res.is_post_ddt[0],
-        search_start=res.search_start[0],
-        search_end=res.search_end[0],
-        stop_step=res.stop_step[0],
-        stop_reason=res.stop_reason[0],
-        ddt_frame=res.ddt_frame[0],
-        clear_vc_entry=res.clear_vc_entry[0],
-    )
+    return DeviceScanResult(*(x[0] for x in res))

@@ -1,6 +1,6 @@
 """Map-then-scan tracking driver: batched device profiles → host tracker.
 
-The TPU execution model for one video (SURVEY.md §7 design):
+The execution model for one video (SURVEY.md §7 design):
 
 1. **Map phase (parallel, device):** decode + background-subtract + frame-diff
    + opening + blur + Sobel/gradient centerline extraction for ALL frames,
@@ -108,7 +108,6 @@ def compute_profiles_batched(
     chunk_size: int = 256,
     device_fn=None,
     read_packed: Optional[Callable[[int, int], np.ndarray]] = None,
-    use_pallas: Optional[bool] = None,
     read_band: Optional[Callable] = None,
     count_fn: Optional[Callable] = None,
     read_band_counts: Optional[Callable] = None,
@@ -140,8 +139,6 @@ def compute_profiles_batched(
             the minimal-transfer path (~15 percent of the payload at H=128).
             8/10/12/16-bit containers supported (``band_bit_depth``, the
             storage depth — also used by the full-frame packed path).
-        use_pallas: run the fused Mosaic kernel for the band chain (defaults
-            to True on TPU backends, False elsewhere).
         keep_device: return the (N, W) profile lines as DEVICE-resident jnp
             arrays (for the on-device scan) instead of fetched numpy; only
             the signal counts come back to host.
@@ -183,12 +180,6 @@ def compute_profiles_batched(
 
     if device_fn is None:
         device_fn = batch_centerline_profiles
-    if use_pallas is None:
-        # The fused Mosaic kernel is bit-identical to the jnp chain on TPU;
-        # on CPU backends Pallas would run interpreted (slow), so skip it.
-        from ..utils.backend import is_tpu_backend
-
-        use_pallas = is_tpu_backend()
 
     skip = set(int(s) for s in skip_frames)
     processed = np.array([i for i in range(n_frames) if i not in skip], dtype=np.int64)
@@ -276,15 +267,11 @@ def compute_profiles_batched(
 
     # Streaming dispatch: read host chunk → device_put → dispatch kernel →
     # DROP the input device reference immediately; block only once at the
-    # end. Measured on the TPU transfer path: this free-running pattern
-    # sustains ~450 MB/s, while holding a window of staged device buffers
-    # (or blocking per chunk) collapses throughput ~6x — the transfer
-    # engine serializes against live buffers.
+    # end, so transfers and device work overlap the next chunk's host read.
     #
     # Batch shapes are BUCKETED to the next power of two (padding rows carry
     # prior_index = -1, i.e. inert): without this every distinct chunk tail
-    # and every differently-sized video would trigger a fresh TPU compile
-    # (~minutes through a remote-compile service).
+    # and every differently-sized video would trigger a fresh compile.
     def _bucket(n: int) -> int:
         b = 1
         while b < n:
@@ -354,7 +341,6 @@ def compute_profiles_batched(
                         np.float32(config.frame_diff_threshold),
                         morphology_kernel_size=config.morphology_kernel_size,
                         gaussian_sigma=config.gaussian_sigma,
-                        use_pallas=use_pallas,
                         bit_depth=band_bit_depth,
                     )
                 del dev, host
@@ -386,7 +372,6 @@ def compute_profiles_batched(
                         np.float32(noise_threshold),
                         morphology_kernel_size=config.morphology_kernel_size,
                         gaussian_sigma=config.gaussian_sigma,
-                        use_pallas=use_pallas,
                         bit_depth=band_bit_depth,
                     )
                 else:
@@ -398,7 +383,6 @@ def compute_profiles_batched(
                         np.float32(noise_threshold),
                         morphology_kernel_size=config.morphology_kernel_size,
                         gaussian_sigma=config.gaussian_sigma,
-                        use_pallas=use_pallas,
                     )
             del dev, host
             pending.append((pos, stop, row0, row1, sob, grad, intens, rawc,
@@ -680,7 +664,6 @@ def run_tracking_scan_device(
     time_fn=None,
     detection_method: str = "combined",
     use_frame_diff: bool = True,
-    use_pallas_scan: Optional[bool] = None,
     stage_times=None,
 ) -> TrackingOutput:
     """Scan phase ON DEVICE: one-kernel tracker over device-resident profiles.
@@ -689,15 +672,16 @@ def run_tracking_scan_device(
     float64 velocity columns are reconstructed from the integer positions.
     Proven row-identical to :func:`run_tracking_scan` (tests/test_device_scan).
 
-    On TPU backends every detector ('combined' and the three named
-    profile methods) runs as a single Pallas kernel (state in SMEM,
-    sequential grid over frames — :mod:`hsip_tpu.track.pallas_scan`); CPU
-    backends use the ``lax.scan`` implementation. Both are
-    bit-identical by contract; ``use_pallas_scan`` overrides the gate.
+    On a GPU every detector ('combined' and the three named profile
+    methods) runs as one Pallas (Triton) kernel launch
+    (:mod:`hsip_tpu.track.pallas_scan`); other backends use the
+    ``lax.scan`` implementation. Both are bit-identical by contract. A
+    kernel failure raises: there is no silent fallback.
     """
 
     from .batch import ScanHistory, build_device_scan_output
     from .device_scan import device_tracking_scan
+    from . import pallas_scan
     from ..utils.profiling import StageTimes
 
     if stage_times is None:
@@ -735,78 +719,36 @@ def run_tracking_scan_device(
 
     import jax
 
-    from .pallas_scan import (
-        default_frames_per_step,
-        pallas_tracking_scan,
-        supports_pallas_scan,
+    scan_args = (
+        np.asarray(profiles.frame_indices, dtype=np.int32),
+        sob_in,
+        grad_in,
+        empty,
+        has_prior,
     )
-
-    if use_pallas_scan is None:
-        from ..utils.backend import is_tpu_backend
-
-        use_pallas_scan = is_tpu_backend()
-    res = None
+    scan_kwargs = dict(
+        width=profiles.width,
+        min_gradient_strength=np.float32(config.min_gradient_strength),
+        sobel_threshold_fraction=np.float32(config.sobel_threshold_fraction),
+        ddt_velocity_jump=np.float32(config.ddt_velocity_jump_m_s),
+        calibration=np.float32(calibration_m_per_px),
+        frame_rate=np.float32(frame_rate),
+        max_displacement_px=np.int32(max_disp),
+        edge_margin_px=config.edge_margin_px,
+        search_window_px=config.search_window_px,
+        exit_margin_px=config.exit_margin_px,
+        method=detection_method,
+        intensity_lines=intensity,
+        method_fraction=np.float32(fraction),
+    )
     _scan_t = stage_times.stage("scan_dispatch")
     _scan_t.__enter__()
-    if use_pallas_scan and supports_pallas_scan(
-        profiles.width, detection_method
-    ):
-        try:
-            res = pallas_tracking_scan(
-                np.asarray(profiles.frame_indices, dtype=np.int32),
-                sob_in,
-                grad_in,
-                empty,
-                has_prior,
-                width=profiles.width,
-                min_gradient_strength=np.float32(config.min_gradient_strength),
-                sobel_threshold_fraction=np.float32(
-                    config.sobel_threshold_fraction
-                ),
-                ddt_velocity_jump=np.float32(config.ddt_velocity_jump_m_s),
-                calibration=np.float32(calibration_m_per_px),
-                frame_rate=np.float32(frame_rate),
-                max_displacement_px=np.int32(max_disp),
-                edge_margin_px=config.edge_margin_px,
-                search_window_px=config.search_window_px,
-                exit_margin_px=config.exit_margin_px,
-                frames_per_step=default_frames_per_step(),
-                method=detection_method,
-                intensity_lines=intensity,
-                method_fraction=np.float32(fraction),
-            )
-        except Exception as exc:  # noqa: BLE001 — bit-identical fallback
-            # A Mosaic lowering/runtime failure must degrade to the
-            # lax.scan backend (identical outputs), not kill the run.
-            from ..utils.logging import get_logger
-
-            get_logger("track").warning(
-                "pallas scan unavailable (%s: %s); using lax.scan",
-                type(exc).__name__, exc,
-            )
-    if res is None:
-        res = device_tracking_scan(
-            np.asarray(profiles.frame_indices, dtype=np.int32),
-            sob_in,
-            grad_in,
-            empty,
-            has_prior,
-            width=profiles.width,
-            min_gradient_strength=np.float32(config.min_gradient_strength),
-            sobel_threshold_fraction=np.float32(
-                config.sobel_threshold_fraction
-            ),
-            ddt_velocity_jump=np.float32(config.ddt_velocity_jump_m_s),
-            calibration=np.float32(calibration_m_per_px),
-            frame_rate=np.float32(frame_rate),
-            max_displacement_px=np.int32(max_disp),
-            edge_margin_px=config.edge_margin_px,
-            search_window_px=config.search_window_px,
-            exit_margin_px=config.exit_margin_px,
-            method=detection_method,
-            intensity_lines=intensity,
-            method_fraction=np.float32(fraction),
+    if pallas_scan.kernel_enabled():
+        res = pallas_scan.pallas_tracking_scan(
+            *scan_args, interpret=pallas_scan.INTERPRET, **scan_kwargs
         )
+    else:
+        res = device_tracking_scan(*scan_args, **scan_kwargs)
 
     _scan_t.__exit__(None, None, None)
     # Only the integer positions come back: the truncation/DDT decisions
@@ -855,7 +797,7 @@ def track_video(
 
     Map phase on device; ``scan`` selects where the sequential tracker runs:
     'host' (float64 numpy — supports viz hooks and all methods) or 'device'
-    (lax.scan on TPU — profiles never leave the device; proven
+    (one device kernel — profiles never leave the device; proven
     row-identical, velocities reconstructed in float64 from positions).
     Background taken from frame 0's max (reference behavior) unless given.
 
@@ -982,7 +924,7 @@ def _compute_profiles_sharded(
 
     Streams the recording in chunks of ``frames_per_shard * n_shards`` with a
     one-frame overlap (each chunk's first frame is the previous chunk's last,
-    carrying the differencing prior; its output row is dropped), so host/HBM
+    carrying the differencing prior; its output row is dropped), so host/device
     footprint stays bounded on long recordings.
 
     ``skip_frames`` are excluded entirely (not processed, not priors —

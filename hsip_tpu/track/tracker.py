@@ -1,9 +1,9 @@
 """Flame-front tracking: sequential state machine + full-frame detector API.
 
-Two layers, split at the TPU-design seam (SURVEY.md §7):
+Two layers, split at the device-design seam (SURVEY.md §7):
 
 * :class:`FlameTracker` — the *state machine*: consumes per-frame centerline
-  profiles (tiny width-length vectors, produced in parallel on TPU by
+  profiles (tiny width-length vectors, produced in parallel on device by
   :mod:`hsip_tpu.kernels.preprocess` or on host) and carries all sequential
   state: search bounds, position/velocity history, spline, DDT latch. Runs in
   float64 on host so output tables are exact.
@@ -441,7 +441,7 @@ class FlameDetector:
       5. horizontal Sobel + central-difference gradient
       6. centerline candidate selection within velocity-constrained bounds
 
-    The TPU pipeline (:mod:`hsip_tpu.track.scan`) produces identical results
+    The device pipeline (:mod:`hsip_tpu.track.scan`) produces identical results
     by computing steps 1-5 batched on device and feeding the profiles to the
     same :class:`FlameTracker`.
     """

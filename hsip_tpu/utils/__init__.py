@@ -6,7 +6,7 @@ integration, machine-readable per-run summary JSON, and resumable batch
 state.
 """
 
-from .backend import is_tpu_backend
+from .backend import is_gpu_backend
 from .logging import get_logger, set_log_level
 from .profiling import StageTimes, profile_trace, start_profiler_server
 from .summary import RunSummary
@@ -15,7 +15,7 @@ from .xla_cache import enable_persistent_compilation_cache
 
 __all__ = [
     "enable_persistent_compilation_cache",
-    "is_tpu_backend",
+    "is_gpu_backend",
     "get_logger",
     "set_log_level",
     "profile_trace",

@@ -1,61 +1,51 @@
 """Persistent XLA compilation cache for process entry points.
 
-Every fresh process pays full XLA compiles (tens of seconds per batch-shape
-bucket on TPU, worse through a remote compile service). JAX's persistent
-compilation cache keys serialized executables by HLO hash, so repeat CLI /
+Every fresh process pays full XLA compiles (seconds per batch-shape
+bucket). JAX's persistent compilation cache keys serialized executables by
+HLO hash (and the compile options, XLA flags included), so repeat CLI /
 benchmark invocations skip straight to execution. Enabled by the `hsip`
-CLI and `bench.py`; library users opt in by calling this helper (it is NOT
-switched on at import time — libraries shouldn't mutate global JAX config
-as a side effect).
+CLI, `bench.py` and `chip_smoke.py`; library users opt in by calling this
+helper (it is NOT switched on at import time — libraries shouldn't mutate
+global JAX config as a side effect).
 """
 
 from __future__ import annotations
 
 import os
-import re
 from pathlib import Path
 from typing import Optional
 
-__all__ = ["enable_persistent_compilation_cache"]
+__all__ = ["default_cache_dir", "enable_persistent_compilation_cache"]
 
 
-def _cpu_isa_tag() -> str:
-    """Cache partition for the effective ``--xla_cpu_max_isa`` setting.
+def default_cache_dir() -> Path:
+    """The fixed in-checkout cache directory (``<repo>/.jax_cache``).
 
-    The persistent cache does not key executables on the ISA cap, so a
-    process compiling with native feature detection and one capped at
-    AVX2 (the masked-CPUID sandbox workaround) would otherwise share
-    entries — and the capped process could load cached AVX-512 code,
-    reintroducing exactly the SIGILL class the cap exists to prevent
-    (observed as cpu_aot_loader machine-feature-mismatch errors when the
-    two modes shared one directory)."""
-    m = re.search(r"--xla_cpu_max_isa=(\S+)", os.environ.get("XLA_FLAGS", ""))
-    return f"isa-{m.group(1)}" if m else "isa-native"
+    Fixed, so that every process of a checkout finds what the others
+    compiled: the directory is part of what a later process must match.
+    """
+    return Path(__file__).resolve().parents[2] / ".jax_cache"
 
 
-def enable_persistent_compilation_cache(path: Optional[str] = None) -> Optional[str]:
+def enable_persistent_compilation_cache() -> Optional[str]:
     """Point JAX's persistent compilation cache at a stable directory.
 
-    Resolution order: explicit ``path`` → ``JAX_COMPILATION_CACHE_DIR`` →
-    ``~/.cache/hsip_tpu/xla/<isa-tag>`` (the default partitions by the
-    CPU ISA cap so differently-capped processes never exchange
-    executables; explicit paths are the caller's responsibility).
-    Returns the directory in use, or None when the cache could not be
-    enabled (old JAX, read-only home) — callers proceed without it; this
-    is purely an optimization.
+    ``JAX_COMPILATION_CACHE_DIR`` is used as it is when set; otherwise
+    :func:`default_cache_dir`. Returns the directory in use, or None when
+    the cache could not be enabled (read-only checkout) — callers proceed
+    without it; this is purely an optimization.
     """
-    if path is None:
-        path = os.environ.get("JAX_COMPILATION_CACHE_DIR") or str(
-            Path.home() / ".cache" / "hsip_tpu" / "xla" / _cpu_isa_tag()
-        )
+    path = os.environ.get("JAX_COMPILATION_CACHE_DIR") or str(
+        default_cache_dir()
+    )
     try:
         Path(path).mkdir(parents=True, exist_ok=True)
         import jax
 
-        jax.config.update("jax_compilation_cache_dir", str(path))
+        jax.config.update("jax_compilation_cache_dir", path)
         # Cache everything that took meaningful compile time (the default
-        # 1s threshold skips small-but-remote compiles worth keeping).
+        # 1 s threshold skips the many sub-second per-bucket compiles).
         jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.2)
     except Exception:
         return None
-    return str(path)
+    return path

@@ -7,9 +7,9 @@ management and a float64 view. Differences by design:
 
 * Decoding is in-tree (:class:`hsip_tpu.io.MRAWReader`), no pyMRAW dependency.
 * :meth:`PhotonVideo.frame_bytes` exposes the *packed* payload for staging to
-  TPU HBM, where :mod:`hsip_tpu.kernels.unpack` decodes on-device.
+  device memory, where :mod:`hsip_tpu.kernels.unpack` decodes on-device.
 * :meth:`PhotonVideo.read_batch` returns contiguous decoded frame batches for
-  the batched TPU preprocess path.
+  the batched device preprocess path.
 """
 
 from __future__ import annotations
@@ -503,7 +503,7 @@ class PhotonVideo:
         )
 
     def frame_bytes(self, start: int, stop: Optional[int] = None) -> np.ndarray:
-        """Packed payload bytes of frames [start, stop): the TPU staging path.
+        """Packed payload bytes of frames [start, stop): the device staging path.
 
         Hand this straight to ``jax.device_put`` and decode on-device with
         :func:`hsip_tpu.kernels.unpack.unpack_12bit_tpu` so raw bytes, not

@@ -80,16 +80,16 @@ def test_cli_entry_points():
 
 def test_round2_additions():
     from hsip_tpu.track import fitpack, pallas_scan, spline
-    from hsip_tpu.utils import is_tpu_backend
+    from hsip_tpu.utils import is_gpu_backend
 
     for mod, names in (
         (fitpack, ("curfit", "splev", "FitpackError")),
         (pallas_scan, ("pallas_tracking_scan", "pallas_tracking_scan_batched",
-                       "supports_pallas_scan")),
+                       "kernel_enabled")),
         (spline, ("fit_smoothing_spline", "SmoothingSpline")),
     ):
         for name in names:
             assert hasattr(mod, name), name
-    assert callable(is_tpu_backend)
+    assert callable(is_gpu_backend)
 
     from hsip_tpu.parallel.dryrun import run_pipeline_dryrun  # noqa: F401

@@ -27,7 +27,6 @@ def _run_both(frames, fps=100_000, cal=0.0008, config=None, method="combined"):
         frame_shape=frames.shape[1:],
         background_scalar=bg,
         config=config,
-        use_pallas=False,
     )
     host = run_tracking_scan(profiles, config, fps, cal, detection_method=method)
 

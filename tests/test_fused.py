@@ -475,10 +475,53 @@ def test_fused_stage_attribution(tmp_path):
         assert key in stages, stages
     # The fused native gather+count staging pass folds the counts into
     # read_gather: no separate counts_host stage should be paid when the
-    # native codec carries the fused symbols (VERDICT r3 #4 — the host
-    # staging payload is swept ONCE).
+    # native codec carries the fused symbols (the host staging payload is
+    # swept ONCE).
     from hsip_tpu._native import native_decoder
 
     dec = native_decoder()
     if dec is not None and dec.has_gather_count:
         assert "counts_host" not in stages, stages
+
+
+def test_fused_budget_from_device_memory_stats(tmp_path, monkeypatch):
+    """The fused budget is a stated fraction of the device's reported
+    bytes_limit: a library over it takes the chunked path, and an
+    accelerator that reports no stats is an error (no assumed size). A
+    CPU device's budget is the same fraction of host RAM."""
+    import jax
+
+    import hsip_tpu.track.fused as fused
+
+    assert fused._max_fused_bytes() > 0  # the real CPU device
+
+    class FakeDevice:
+        platform, device_kind = "gpu", "Fake GPU"
+
+        def __init__(self, stats):
+            self._stats = stats
+
+        def memory_stats(self):
+            return self._stats
+
+    def use(stats):
+        monkeypatch.setattr(jax, "local_devices",
+                            lambda *a, **k: [FakeDevice(stats)])
+
+    use({"bytes_limit": 64 << 30, "bytes_in_use": 0})
+    assert fused._max_fused_bytes() == int(
+        (64 << 30) * fused._FUSED_MEMORY_FRACTION
+    )
+    use(None)
+    with pytest.raises(RuntimeError, match="memory stats"):
+        fused._max_fused_bytes()
+
+    for i in range(2):
+        _write(tmp_path, f"budget-run-{i + 1}-a", seed=i)
+    use({"bytes_limit": 1 << 20})  # far below two recordings' footprint
+    with open_collection(str(tmp_path)) as coll:
+        videos = list(coll)
+        assert track_uniform_videos_fused(
+            videos, videos[0].frame_shape[1], FlameDetectorConfig(), None,
+            True,
+        ) is None

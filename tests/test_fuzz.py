@@ -181,7 +181,7 @@ def test_random_pallas_scan_parity(seed, method):
     """Randomized configs through the Pallas scan kernel (interpret mode)
     vs the lax.scan backend: every output field bit-identical. The method
     is parametrized (not drawn) so every tier run deterministically covers
-    all four kernels; widths include non-lane-aligned values."""
+    all four kernels; widths include non-power-of-two values."""
     import jax.numpy as jnp
 
     from hsip_tpu.track.device_scan import device_tracking_scan
@@ -253,10 +253,9 @@ def test_random_pallas_scan_parity(seed, method):
 def test_adversarial_pallas_scan_soak(method):
     """Adversarial value classes through the kernel at a hostile static
     config: heavy ties, sparse spikes, flat plateaus, and noise — with
-    edge_margin 0 (the pltpu.roll wraparound lanes sit exactly at the
-    window boundaries there), scattered non-contiguous frame indices,
-    frame_rate 0 draws, and K=3 with M=25 (pads to 27, so the inert
-    padding rows are exercised too). Every field bit-identical."""
+    edge_margin 0 (the windows reach the clamped neighbour columns and the
+    masked block tail), scattered non-contiguous frame indices and
+    frame_rate 0 draws. Every field bit-identical."""
     import jax.numpy as jnp
 
     from hsip_tpu.track.device_scan import device_tracking_scan
@@ -298,8 +297,7 @@ def test_adversarial_pallas_scan_soak(method):
                       method_fraction=np.float32(rng.uniform(0.2, 1.2)))
         args = (fidx, sob, grad, jnp.asarray(empty), jnp.asarray(prior))
         a = device_tracking_scan(*args, **kw)
-        b = pallas_tracking_scan(*args, interpret=True,
-                                 frames_per_step=3, **kw)
+        b = pallas_tracking_scan(*args, interpret=True, **kw)
         for name in a._fields:
             va = np.asarray(getattr(a, name))
             vb = np.asarray(getattr(b, name)).astype(va.dtype)

@@ -1,4 +1,4 @@
-"""Golden-table regression: the TPU pipeline must reproduce, BYTE FOR BYTE,
+"""Golden-table regression: the device pipeline must reproduce, BYTE FOR BYTE,
 a results table generated once by the exact float64 backend.
 
 Guards the whole exactness contract at once: synthetic generation, 12-bit

@@ -287,7 +287,7 @@ def test_band_bytes_and_count_above(tmp_path):
 @pytest.mark.parametrize("bit_depth", [8, 10, 12, 16])
 def test_band_bytes_and_counts_fused_pass(tmp_path, bit_depth):
     """The fused native staging pass (ONE sweep: band rows + counts) must
-    be byte/value-identical to band_bytes + count_above (VERDICT r3 #4)."""
+    be byte/value-identical to band_bytes + count_above."""
     rng = np.random.default_rng(11)
     hi = min(4096, 2 ** bit_depth)
     frames = rng.integers(0, hi, size=(7, 24, 64), dtype=np.uint16)

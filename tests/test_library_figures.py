@@ -1,4 +1,4 @@
-"""Library-mode figures (VERDICT r3 #5): data-identical to per-file mode.
+"""Library-mode figures: data-identical to per-file mode.
 
 The batched library scan dead-code-eliminates the per-frame detector
 internals a diagnostic figure draws, so library mode replays the per-file
@@ -89,7 +89,7 @@ def test_library_figures_match_per_file_bytes(fig_library, tmp_path):
 
 
 def test_device_backend_figures_match_tpu_bytes(fig_library, tmp_path):
-    """backend='device' must render figures too (VERDICT r4 missing #1):
+    """backend='device' must render figures too:
     the on-device scan has no per-frame hook, so a host-scan replay
     collects them — byte-identical to backend='tpu', like the reference's
     always-available 12-panel diagnostics (process_videos.py:1474-1480)."""

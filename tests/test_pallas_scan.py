@@ -1,11 +1,12 @@
-"""Pallas scan kernel: bit-identity with the lax.scan tracker.
+"""Pallas (Triton) scan kernel: bit-identity with the lax.scan tracker.
 
-The single-kernel Pallas scan (track/pallas_scan.py) must agree with
-device_tracking_scan on EVERY output field, bit for bit — it is the TPU
-fast path for the default tracker, and the host scan's quantization
-contract is anchored on the lax.scan semantics. These tests run the kernel
-in interpret mode on the CPU suite; the real-chip identity + latency
-checks live in the HSIP_TPU_CHIP=1 tier.
+The single-kernel scan (track/pallas_scan.py) must agree with
+device_tracking_scan on EVERY output field, bit for bit — it is the GPU
+path for every detector, and the host scan's quantization contract is
+anchored on the lax.scan semantics. These tests run the kernel in Pallas
+interpret mode on the CPU, and lower it for CUDA (which runs the Triton
+lowering rules without a card); `chip_smoke.py` checks the compiled kernel
+on the GPU.
 """
 
 import jax
@@ -13,10 +14,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+import hsip_tpu.track.pallas_scan as ps
 from hsip_tpu.io import FlameSpec, synthesize_flame_video, write_recording
 from hsip_tpu.track import FlameDetectorConfig
 from hsip_tpu.track.device_scan import device_tracking_scan
-from hsip_tpu.track.pallas_scan import pallas_tracking_scan, supports_pallas_scan
+from hsip_tpu.track.pallas_scan import (
+    pallas_tracking_scan,
+    pallas_tracking_scan_batched,
+)
+
+_METHODS = ["combined", "threshold", "half_maximum", "gradient"]
 
 
 def _assert_identical(a, b):
@@ -50,8 +57,8 @@ _KW = dict(
 
 def test_pallas_scan_random_profiles():
     rng = np.random.default_rng(3)
-    # Aligned and non-aligned widths: the kernel pads rows to a lane
-    # multiple, so any W must match the lax.scan backend bit for bit.
+    # Power-of-two and other widths: the kernel loads a power-of-two block
+    # masked to W, so any W must match the lax.scan backend bit for bit.
     for trial, W in enumerate((256, 250, 255, 100)):
         M = int(rng.integers(8, 80))
         sob = rng.normal(0, 30, (M, W)).astype(np.float32)
@@ -61,114 +68,6 @@ def test_pallas_scan_random_profiles():
         prior[0] = False
         fidx = np.arange(M, dtype=np.int32)
         _run_both(fidx, sob, grad, empty, prior, width=W, **_KW)
-
-
-def test_folded_matches_unfolded_v1():
-    """The V=1 FOLDED layout (profile row split across the 8 sublanes)
-    must be bit-identical to the sublane-video layout with 7 inert pads —
-    across widths that fold exactly (1024), pad within one tile (250,
-    640), and span two folded tiles (1500)."""
-    from hsip_tpu.track.pallas_scan import pallas_tracking_scan_batched
-
-    rng = np.random.default_rng(17)
-    for W in (1024, 250, 640, 1500):
-        M = int(rng.integers(16, 60))
-        sob = rng.normal(0, 30, (1, M, W)).astype(np.float32)
-        grad = rng.normal(0, 15, (1, M, W)).astype(np.float32)
-        empty = jnp.asarray(rng.random((1, M)) < 0.15)
-        prior = np.ones((1, M), bool)
-        prior[0, 0] = False
-        fidx = np.arange(M, dtype=np.int32).reshape(1, M)
-        kw = dict(
-            width=W,
-            min_gradient_strength=np.float32(10.0),
-            sobel_threshold_fraction=np.float32(0.1),
-            ddt_velocity_jump=np.float32(1250.0),
-            calibration=np.ones(1, np.float32) * 0.001,
-            frame_rate=np.ones(1, np.float32) * 100_000.0,
-            max_displacement_px=np.ones(1, np.int32) * 3,
-            interpret=True,
-        )
-        a = pallas_tracking_scan_batched(
-            fidx, sob, grad, empty, jnp.asarray(prior), fold=False, **kw
-        )
-        b = pallas_tracking_scan_batched(
-            fidx, sob, grad, empty, jnp.asarray(prior), fold=True, **kw
-        )
-        _assert_identical(a, b)
-
-
-@pytest.mark.parametrize("method", ["threshold", "half_maximum", "gradient"])
-def test_folded_named_methods_match(method):
-    """Folded layout parity for the named detectors — 'gradient' covers
-    the fold-boundary neighbor fix (_fold_neighbors)."""
-    from hsip_tpu.track.pallas_scan import pallas_tracking_scan_batched
-
-    rng = np.random.default_rng(23)
-    for W in (250, 1024):
-        M = 40
-        intens = np.abs(rng.normal(40, 30, (1, M, W))).astype(np.float32)
-        zeros = np.zeros((1, M, W), np.float32)
-        empty = jnp.asarray(rng.random((1, M)) < 0.1)
-        prior = np.ones((1, M), bool)
-        fidx = np.arange(M, dtype=np.int32).reshape(1, M)
-        kw = dict(
-            width=W,
-            min_gradient_strength=np.float32(5.0),
-            sobel_threshold_fraction=np.float32(0.1),
-            ddt_velocity_jump=np.float32(1250.0),
-            calibration=np.ones(1, np.float32) * 0.001,
-            frame_rate=np.ones(1, np.float32) * 100_000.0,
-            max_displacement_px=np.ones(1, np.int32) * 3,
-            interpret=True,
-            method=method,
-            intensity_lines=intens,
-            method_fraction=np.float32(0.5),
-        )
-        a = pallas_tracking_scan_batched(
-            fidx, zeros, zeros, empty, jnp.asarray(prior), fold=False, **kw
-        )
-        b = pallas_tracking_scan_batched(
-            fidx, zeros, zeros, empty, jnp.asarray(prior), fold=True, **kw
-        )
-        _assert_identical(a, b)
-
-
-def test_fold_env_knob(monkeypatch):
-    """HSIP_PALLAS_FOLD=0 disables auto-folding; fold=True at V>1 is an
-    error (the folded tile holds exactly one video's column groups)."""
-    from hsip_tpu.track.pallas_scan import pallas_tracking_scan_batched
-
-    rng = np.random.default_rng(5)
-    M, W = 16, 256
-    sob = rng.normal(0, 30, (2, M, W)).astype(np.float32)
-    kw = dict(
-        width=W,
-        min_gradient_strength=np.float32(10.0),
-        sobel_threshold_fraction=np.float32(0.1),
-        ddt_velocity_jump=np.float32(1250.0),
-        calibration=np.ones(2, np.float32),
-        frame_rate=np.ones(2, np.float32) * 1e5,
-        max_displacement_px=np.ones(2, np.int32) * 3,
-        interpret=True,
-    )
-    fidx = np.tile(np.arange(M, dtype=np.int32), (2, 1))
-    empty = jnp.zeros((2, M), bool)
-    prior = jnp.ones((2, M), bool)
-    with pytest.raises(ValueError, match="fold"):
-        pallas_tracking_scan_batched(
-            fidx, sob, sob, empty, prior, fold=True, **kw
-        )
-    # env off: V=1 auto-routing must pick the unfolded layout (proved by
-    # parity anyway; this pins the knob actually being read).
-    monkeypatch.setenv("HSIP_PALLAS_FOLD", "0")
-    kw1 = dict(kw, calibration=kw["calibration"][:1],
-               frame_rate=kw["frame_rate"][:1],
-               max_displacement_px=kw["max_displacement_px"][:1])
-    res = pallas_tracking_scan_batched(
-        fidx[:1], sob[:1], sob[:1], empty[:1], prior[:1], **kw1
-    )
-    assert np.asarray(res.final_position).shape == (1, M)
 
 
 def _video_profiles(flame, n=40, width=256, height=32):
@@ -210,8 +109,8 @@ def test_pallas_scan_flame_scenarios(flame):
 
 
 def test_pallas_scan_nonaligned_width_flame():
-    """A real flame trajectory at a width with no lane alignment (W=250):
-    map-phase profiles plus both scan backends, still bit-identical."""
+    """A real flame trajectory at a width that is not a power of two
+    (W=250): map-phase profiles plus both scan backends, bit-identical."""
     p, empty = _video_profiles(
         FlameSpec(x0=20.0, v0_px=7.0, ignition_frame=2, seed=17),
         n=32, width=250,
@@ -237,20 +136,31 @@ def test_pallas_scan_zero_frame_rate():
     )
 
 
-def test_pallas_scan_gate():
-    assert supports_pallas_scan(1024, "combined")
-    assert supports_pallas_scan(1000, "combined")     # pads to lanes
-    assert supports_pallas_scan(1024, "gradient")     # named methods covered
-    assert not supports_pallas_scan(1024, "nonsense")
+def test_pallas_scan_gate(monkeypatch):
+    """The kernel runs on a GPU backend, or wherever a test asked for
+    interpret mode — never on the CPU otherwise."""
+    import hsip_tpu.utils.backend as backend_mod
+
+    assert not backend_mod.is_gpu_backend()  # the suite runs on the CPU
+    assert not ps.kernel_enabled()
+    monkeypatch.setattr(ps, "INTERPRET", True)
+    assert ps.kernel_enabled()
+    monkeypatch.setattr(ps, "INTERPRET", False)
+    monkeypatch.setattr(backend_mod, "is_gpu_backend", lambda: True)
+    assert ps.kernel_enabled()
 
 
-def test_track_video_pallas_gate_off_on_cpu(tmp_path):
-    """On CPU backends run_tracking_scan_device stays on lax.scan (the
-    Pallas kernel would need interpret mode); forcing it via the override
-    + interpret is what the tests above do."""
+def test_track_video_pallas_gate_off_on_cpu(tmp_path, monkeypatch):
+    """On the CPU run_tracking_scan_device stays on lax.scan: no path runs
+    the kernel in interpret mode unless a test asked for it."""
     from hsip_tpu import open_video
     from hsip_tpu.track.scan import track_video
 
+    def boom(*a, **k):
+        raise AssertionError("kernel path taken on the CPU")
+
+    monkeypatch.setattr(ps, "pallas_tracking_scan", boom)
+    monkeypatch.setattr(ps, "pallas_tracking_scan_batched", boom)
     frames, _ = synthesize_flame_video(
         20, height=32, width=256,
         flame=FlameSpec(x0=25, v0_px=8, ignition_frame=2, seed=9),
@@ -275,7 +185,7 @@ def test_pallas_scan_rejects_bad_width():
 
 
 def test_pallas_scan_batched_matches_vmapped_lax_scan():
-    """Whole-batch kernel (grid (V, M), per-video state reset and params)
+    """Whole-batch kernel (grid (V,), per-video state reset and params)
     is bit-identical to vmap(device_tracking_scan) — including an inert
     all-empty pad video like the mesh-alignment padding."""
     specs = [
@@ -319,8 +229,6 @@ def test_pallas_scan_batched_matches_vmapped_lax_scan():
     a = scan_v(jnp.asarray(fi), jnp.asarray(sob), jnp.asarray(grad),
                jnp.asarray(empty), jnp.asarray(prior),
                jnp.asarray(cals), jnp.asarray(fps), jnp.asarray(mds))
-    from hsip_tpu.track.pallas_scan import pallas_tracking_scan_batched
-
     b = pallas_tracking_scan_batched(
         jnp.asarray(fi), jnp.asarray(sob), jnp.asarray(grad),
         jnp.asarray(empty), jnp.asarray(prior),
@@ -332,89 +240,10 @@ def test_pallas_scan_batched_matches_vmapped_lax_scan():
     assert all(np.asarray(a.recorded)[i].sum() > 3 for i in range(3))
 
 
-def test_pallas_failure_falls_back_to_lax_scan(tmp_path):
-    """Forcing the Pallas path on a backend that cannot lower it must
-    degrade to the (bit-identical) lax.scan, not abort the run."""
-    from hsip_tpu import open_video
-    from hsip_tpu.track.scan import (
-        compute_profiles_batched,
-        run_tracking_scan_device,
-    )
-
-    frames, _ = synthesize_flame_video(
-        20, height=32, width=256,
-        flame=FlameSpec(x0=25, v0_px=8, ignition_frame=2, seed=9),
-    )
-    meta = write_recording(tmp_path, "fb-run-1", frames)
-    with open_video(str(meta)) as video:
-        bg = float(np.max(video[0]))
-        p = compute_profiles_batched(
-            video.read_batch, len(video), video.frame_shape, bg,
-            FlameDetectorConfig(), chunk_size=16,
-        )
-        out = run_tracking_scan_device(
-            p, FlameDetectorConfig(), frame_rate=video.frame_rate,
-            calibration_m_per_px=0.001,
-            use_pallas_scan=True,  # CPU backend: lowering fails -> fallback
-        )
-        ref = run_tracking_scan_device(
-            p, FlameDetectorConfig(), frame_rate=video.frame_rate,
-            calibration_m_per_px=0.001, use_pallas_scan=False,
-        )
-    assert out.rows == ref.rows and len(out.rows) > 3
-
-
-@pytest.mark.parametrize("W", [1024, 250])
-def test_pallas_scan_lowers_for_tpu(W):
-    """Cross-platform Mosaic lowering: the kernel must pass the Pallas->TPU
-    lowering rules (scalar I/O in SMEM, block layout constraints) WITHOUT a
-    chip — this is what stands between interpret-mode parity and the real
-    hardware, and it caught scalar-store-to-VMEM and block-shape bugs.
-    W=250 exercises the lane-padded (non-aligned-width) layout."""
-    from hsip_tpu.track.pallas_scan import pallas_tracking_scan_batched
-
-    V, M = 2, 16
-    args = (
-        jnp.zeros((V, M), jnp.int32),
-        jnp.zeros((V, M, W), jnp.float32),
-        jnp.zeros((V, M, W), jnp.float32),
-        jnp.zeros((V, M), bool),
-        jnp.ones((V, M), bool),
-    )
-    kw = dict(
-        width=W,
-        min_gradient_strength=jnp.float32(10.0),
-        sobel_threshold_fraction=jnp.float32(0.1),
-        ddt_velocity_jump=jnp.float32(1250.0),
-        calibration=jnp.ones(V, jnp.float32),
-        frame_rate=jnp.full(V, 1e5, jnp.float32),
-        max_displacement_px=jnp.full(V, 3, jnp.int32),
-    )
-    f = jax.jit(lambda *a: pallas_tracking_scan_batched(*a, **kw))
-    low = f.trace(*args).lower(lowering_platforms=("tpu",))
-    assert "tpu_custom_call" in low.as_text()
-
-
-def test_band_preprocess_lowers_for_tpu():
-    """Same cross-platform lowering gate for the fused band kernel."""
-    import numpy as np
-
-    from hsip_tpu.kernels.pallas_preprocess import pallas_band_profiles
-
-    band = jnp.zeros((4, 19, 1024), jnp.float32)
-    pidx = np.arange(-1, 3, dtype=np.int32)
-    f = jax.jit(
-        lambda b: pallas_band_profiles(b, np.maximum(pidx, 0), jnp.float32(5.0))
-    )
-    low = f.trace(band).lower(lowering_platforms=("tpu",))
-    assert "tpu_custom_call" in low.as_text()
-
-
 def test_pallas_scan_under_mesh_shard_map(tmp_path, monkeypatch):
     """The kernel path also serves the mesh-sharded library mode: shard_map
     over the video axis (interpret mode on the virtual CPU mesh) produces
     tables identical to the lax.scan mesh path."""
-    import hsip_tpu.track.batch as batch_mod
     from hsip_tpu import open_collection
     from hsip_tpu.parallel import make_mesh
     from hsip_tpu.track.batch import track_collection_device
@@ -435,172 +264,15 @@ def test_pallas_scan_under_mesh_shard_map(tmp_path, monkeypatch):
                 coll, FlameDetectorConfig(), mesh=mesh
             )
 
-    monkeypatch.setattr(batch_mod, "_PALLAS_MODE", "interpret")
+    monkeypatch.setattr(ps, "INTERPRET", True)
     outs_pallas = run()
-    monkeypatch.setattr(batch_mod, "_PALLAS_MODE", "off")
+    monkeypatch.setattr(ps, "INTERPRET", False)
     outs_lax = run()
     assert len(outs_pallas) == len(outs_lax) == 3
     for a, b in zip(outs_pallas, outs_lax):
         assert a.rows == b.rows and len(a.rows) > 3
         assert a.break_reason == b.break_reason
         assert a.tracker.get_velocity_history() == b.tracker.get_velocity_history()
-
-
-def test_mesh_pallas_scan_lowers_for_tpu():
-    """Cross-platform Mosaic lowering of the shard_map'd kernel (the mesh
-    library path) — per-device pallas_call must survive partitioning."""
-    import numpy as np
-    from jax import shard_map
-    from jax.sharding import PartitionSpec as P
-
-    from hsip_tpu.parallel import make_mesh
-    from hsip_tpu.track.device_scan import DeviceScanResult
-    from hsip_tpu.track.pallas_scan import pallas_tracking_scan_batched
-
-    mesh = make_mesh("video", n_devices=4)
-    V, M, W = 4, 16, 1024
-    kw = dict(
-        width=W,
-        min_gradient_strength=np.float32(10.0),
-        sobel_threshold_fraction=np.float32(0.1),
-        ddt_velocity_jump=np.float32(1250.0),
-    )
-
-    def kernel_scan(fi, sob, grad, empty, hp, cal, fps, md):
-        return pallas_tracking_scan_batched(
-            fi, sob, grad, empty, hp,
-            calibration=cal, frame_rate=fps, max_displacement_px=md, **kw,
-        )
-
-    vm, vmw, vs = P("video", None), P("video", None, None), P("video")
-    f = jax.jit(shard_map(
-        kernel_scan, mesh=mesh,
-        in_specs=(vm, vmw, vmw, vm, vm, vs, vs, vs),
-        out_specs=DeviceScanResult(
-            final_position=vm, recorded=vm, is_post_ddt=vm,
-            search_start=vm, search_end=vm,
-            stop_step=vs, stop_reason=vs, ddt_frame=vs, clear_vc_entry=vs,
-        ),
-        check_vma=False,
-    ))
-    args = (
-        jnp.zeros((V, M), jnp.int32), jnp.zeros((V, M, W), jnp.float32),
-        jnp.zeros((V, M, W), jnp.float32), jnp.zeros((V, M), bool),
-        jnp.ones((V, M), bool), jnp.ones(V, jnp.float32),
-        jnp.full(V, 1e5, jnp.float32), jnp.full(V, 3, jnp.int32),
-    )
-    low = f.trace(*args).lower(lowering_platforms=("tpu",))
-    assert "tpu_custom_call" in low.as_text()
-
-
-@pytest.mark.parametrize("k_frames", [4, 8])
-def test_pallas_scan_frames_per_step_parity(k_frames):
-    """The K-frames-per-grid-step unroll (incl. inert tail padding when
-    K doesn't divide M) is bit-identical to the K=1 scan."""
-    from hsip_tpu.track.pallas_scan import pallas_tracking_scan_batched
-
-    p, empty = _video_profiles(
-        FlameSpec(x0=22.0, v0_px=7.0, accel_px=0.05, ignition_frame=2,
-                  seed=31),
-        n=38,  # not a multiple of 4 or 8 -> exercises the pad path
-    )
-    m = p.frame_indices.size
-    args = (
-        jnp.asarray(np.asarray(p.frame_indices, np.int32)[None]),
-        jnp.asarray(np.asarray(p.sobel_lines)[None]),
-        jnp.asarray(np.asarray(p.gradient_lines)[None]),
-        jnp.asarray(np.asarray(empty)[None]),
-        jnp.asarray(np.asarray(p.has_prior)[None]),
-    )
-    kw = dict(
-        width=p.width,
-        min_gradient_strength=np.float32(10.0),
-        sobel_threshold_fraction=np.float32(0.1),
-        ddt_velocity_jump=np.float32(1250.0),
-        calibration=jnp.full(1, 0.001, jnp.float32),
-        frame_rate=jnp.full(1, 1e5, jnp.float32),
-        max_displacement_px=jnp.full(1, 3, jnp.int32),
-        interpret=True,
-    )
-    base = pallas_tracking_scan_batched(*args, **kw)
-    unrolled = pallas_tracking_scan_batched(
-        *args, frames_per_step=k_frames, **kw
-    )
-    _assert_identical(base, unrolled)
-    assert base.final_position.shape == (1, m)
-
-
-def test_pallas_scan_frames_per_step_lowers_for_tpu():
-    from hsip_tpu.track.pallas_scan import pallas_tracking_scan_batched
-
-    V, M, W = 2, 40, 1024  # M not a multiple of 8
-    args = (
-        jnp.zeros((V, M), jnp.int32), jnp.zeros((V, M, W), jnp.float32),
-        jnp.zeros((V, M, W), jnp.float32), jnp.zeros((V, M), bool),
-        jnp.ones((V, M), bool),
-    )
-    kw = dict(
-        width=W, min_gradient_strength=jnp.float32(10.0),
-        sobel_threshold_fraction=jnp.float32(0.1),
-        ddt_velocity_jump=jnp.float32(1250.0),
-        calibration=jnp.ones(V, jnp.float32),
-        frame_rate=jnp.full(V, 1e5, jnp.float32),
-        max_displacement_px=jnp.full(V, 3, jnp.int32),
-        frames_per_step=8,
-    )
-    f = jax.jit(lambda *a: pallas_tracking_scan_batched(*a, **kw))
-    low = f.trace(*args).lower(lowering_platforms=("tpu",))
-    assert "tpu_custom_call" in low.as_text()
-
-def test_default_frames_per_step_env_knob(monkeypatch):
-    """HSIP_PALLAS_SCAN_K drives the pipeline's unroll choice (clamped,
-    garbage-tolerant) — the replay contract for tools/chip_autotune.py."""
-    from hsip_tpu.track.pallas_scan import default_frames_per_step
-
-    monkeypatch.delenv("HSIP_PALLAS_SCAN_K", raising=False)
-    assert default_frames_per_step() == 8  # the unset prior
-    monkeypatch.setenv("HSIP_PALLAS_SCAN_K", "4")
-    assert default_frames_per_step() == 4
-    monkeypatch.setenv("HSIP_PALLAS_SCAN_K", "0")
-    assert default_frames_per_step() == 1  # lower clamp
-    monkeypatch.setenv("HSIP_PALLAS_SCAN_K", "100000")
-    assert default_frames_per_step() == 128  # upper clamp
-    monkeypatch.setenv("HSIP_PALLAS_SCAN_K", "banana")
-    assert default_frames_per_step() == 8  # garbage -> prior
-
-
-def test_env_knob_reaches_single_video_scan(tmp_path, monkeypatch):
-    """run_tracking_scan_device honors HSIP_PALLAS_SCAN_K: with the Pallas
-    path forced on (interpret-mode capable CPU) and K=3, the rows still
-    byte-match the lax.scan backend."""
-    from unittest import mock
-
-    from hsip_tpu.track.scan import run_tracking_scan_device
-
-    p, _ = _video_profiles(
-        FlameSpec(x0=25, v0_px=8, ignition_frame=2, seed=21), n=30
-    )
-    monkeypatch.setenv("HSIP_PALLAS_SCAN_K", "3")
-    seen = {}
-    orig = pallas_tracking_scan
-
-    def spy(*args, **kw):
-        seen["k"] = kw.get("frames_per_step")
-        kw["interpret"] = True
-        return orig(*args, **kw)
-
-    common = dict(
-        config=FlameDetectorConfig(), frame_rate=1e5,
-        calibration_m_per_px=0.001,
-    )
-    with mock.patch("hsip_tpu.track.pallas_scan.pallas_tracking_scan", spy):
-        out_pallas = run_tracking_scan_device(
-            p, use_pallas_scan=True, **common
-        )
-    assert seen["k"] == 3
-    out_lax = run_tracking_scan_device(p, use_pallas_scan=False, **common)
-    assert out_pallas.rows == out_lax.rows
-    assert len(out_pallas.rows) > 3
 
 
 # ---- named profile methods (threshold / half_maximum / gradient) ----
@@ -660,41 +332,9 @@ def test_pallas_scan_named_methods_flame(method):
 
 
 @pytest.mark.parametrize("method", _NAMED)
-def test_pallas_scan_named_lowers_for_tpu(method):
-    """Mosaic TPU lowering of the named-method kernels (the gradient
-    detector's pltpu.roll shifts included), aligned + padded widths."""
-    from hsip_tpu.track.pallas_scan import pallas_tracking_scan_batched
-
-    V, M = 2, 8
-    for W in (512, 250):
-        args = (
-            jnp.zeros((V, M), jnp.int32),
-            jnp.zeros((V, M, W), jnp.float32),
-            jnp.zeros((V, M, W), jnp.float32),
-            jnp.zeros((V, M), bool),
-            jnp.ones((V, M), bool),
-        )
-        kw = dict(
-            width=W, min_gradient_strength=jnp.float32(10.0),
-            sobel_threshold_fraction=jnp.float32(0.1),
-            ddt_velocity_jump=jnp.float32(1250.0),
-            calibration=jnp.ones(V, jnp.float32),
-            frame_rate=jnp.full(V, 1e5, jnp.float32),
-            max_displacement_px=jnp.full(V, 3, jnp.int32),
-            method=method,
-            intensity_lines=jnp.zeros((V, M, W), jnp.float32),
-            method_fraction=jnp.float32(0.5),
-        )
-        f = jax.jit(lambda *a: pallas_tracking_scan_batched(*a, **kw))
-        low = f.trace(*args).lower(lowering_platforms=("tpu",))
-        assert "tpu_custom_call" in low.as_text(), (method, W)
-
-
-@pytest.mark.parametrize("method", _NAMED)
 def test_pallas_library_named_methods(tmp_path, monkeypatch, method):
     """Library mode with a named detector takes the kernel path and matches
     the lax.scan library path row for row."""
-    import hsip_tpu.track.batch as batch_mod
     from hsip_tpu import open_collection
     from hsip_tpu.track.batch import track_collection_device
     from hsip_tpu.track.config import VideoSourceConfig
@@ -719,9 +359,9 @@ def test_pallas_library_named_methods(tmp_path, monkeypatch, method):
                 coll, FlameDetectorConfig(), source_config=src
             )
 
-    monkeypatch.setattr(batch_mod, "_PALLAS_MODE", "interpret")
+    monkeypatch.setattr(ps, "INTERPRET", True)
     outs_pallas = run()
-    monkeypatch.setattr(batch_mod, "_PALLAS_MODE", "off")
+    monkeypatch.setattr(ps, "INTERPRET", False)
     outs_lax = run()
     assert len(outs_pallas) == len(outs_lax) == 2
     for a, b in zip(outs_pallas, outs_lax):
@@ -732,7 +372,6 @@ def test_pallas_library_named_methods(tmp_path, monkeypatch, method):
 def test_pallas_named_method_under_mesh(tmp_path, monkeypatch):
     """Named detector + mesh: the 9-arg shard_map'd kernel (intensity rows
     ride along) matches the lax.scan mesh path row for row."""
-    import hsip_tpu.track.batch as batch_mod
     from hsip_tpu import open_collection
     from hsip_tpu.parallel import make_mesh
     from hsip_tpu.track.batch import track_collection_device
@@ -759,9 +398,9 @@ def test_pallas_named_method_under_mesh(tmp_path, monkeypatch):
                 coll, FlameDetectorConfig(), source_config=src, mesh=mesh
             )
 
-    monkeypatch.setattr(batch_mod, "_PALLAS_MODE", "interpret")
+    monkeypatch.setattr(ps, "INTERPRET", True)
     outs_pallas = run()
-    monkeypatch.setattr(batch_mod, "_PALLAS_MODE", "off")
+    monkeypatch.setattr(ps, "INTERPRET", False)
     outs_lax = run()
     assert len(outs_pallas) == len(outs_lax) == 2
     for a, b in zip(outs_pallas, outs_lax):
@@ -769,48 +408,310 @@ def test_pallas_named_method_under_mesh(tmp_path, monkeypatch):
         assert a.break_reason == b.break_reason
 
 
-def test_batched_kernel_max_videos_env_knob(monkeypatch):
-    from hsip_tpu.track.pallas_scan import batched_kernel_max_videos
+def _library(tmp_path, n, frames=20, width=256, seed=100):
+    for i in range(n):
+        fr, _ = synthesize_flame_video(
+            frames, height=32, width=width,
+            flame=FlameSpec(x0=22.0 + i, v0_px=7.0, ignition_frame=2,
+                            seed=seed + i),
+        )
+        write_recording(tmp_path, f"lib-run-{i + 1}-001", fr)
+    return tmp_path
 
-    monkeypatch.delenv("HSIP_PALLAS_BATCH_MAX_V", raising=False)
-    assert batched_kernel_max_videos() == 8
-    monkeypatch.setenv("HSIP_PALLAS_BATCH_MAX_V", "5")
-    assert batched_kernel_max_videos() == 5
-    monkeypatch.setenv("HSIP_PALLAS_BATCH_MAX_V", "garbage")
-    assert batched_kernel_max_videos() == 8
+
+@pytest.fixture
+def fresh_fused_programs():
+    """The fused library program is cached per static config; patched
+    kernels must not leak into (or out of) a cached program."""
+    from hsip_tpu.track.fused import _fused_program
+
+    _fused_program.cache_clear()
+    yield
+    _fused_program.cache_clear()
 
 
-def test_scan_routing_by_batch_size(monkeypatch):
-    """The batched kernel engages up to the largest per-device batch the
-    chip sweep measured (the sublane kernel's per-step cost is ~constant
-    in V up to 8) — larger batches route to the vmapped backend until a
-    sweep covers them. Unit-tests the routing helper directly: patching
-    ``is_tpu_backend`` globally would leak into the map phase and try
-    Mosaic on CPU."""
-    import hsip_tpu.track.batch as batch_mod
+def _gpu_gate_with_interpret_spy(monkeypatch):
+    """Pretend the backend is a GPU; route the kernel calls through
+    interpret mode and record the batch sizes they saw (at trace time)."""
     import hsip_tpu.utils.backend as backend_mod
-    from hsip_tpu.track.batch import _use_batched_kernel
 
-    monkeypatch.setattr(backend_mod, "is_tpu_backend", lambda: True)
-    monkeypatch.delenv("HSIP_PALLAS_BATCH_MAX_V", raising=False)
+    seen = []
+    real_batched = ps.pallas_tracking_scan_batched
 
-    # Up to / beyond the sweep's largest measured batch (default max V=8).
-    assert _use_batched_kernel(1, 1024, "threshold") is True
-    assert _use_batched_kernel(8, 1024, "threshold") is True
-    assert _use_batched_kernel(9, 1024, "threshold") is False
-    # The env knob replays a different machine's crossover.
-    monkeypatch.setenv("HSIP_PALLAS_BATCH_MAX_V", "16")
-    assert _use_batched_kernel(16, 1024, "threshold") is True
-    monkeypatch.setenv("HSIP_PALLAS_BATCH_MAX_V", "2")
-    assert _use_batched_kernel(3, 1024, "threshold") is False
-    monkeypatch.delenv("HSIP_PALLAS_BATCH_MAX_V", raising=False)
+    def spy_batched(fi, *a, **k):
+        seen.append(int(fi.shape[0]))
+        return real_batched(fi, *a, **{**k, "interpret": True})
 
-    # Platform gate: no TPU -> vmapped backend regardless of batch size.
-    monkeypatch.setattr(backend_mod, "is_tpu_backend", lambda: False)
-    assert _use_batched_kernel(1, 1024, "threshold") is False
-    # Interpret mode forces the kernel so CPU tests exercise it at any V.
-    monkeypatch.setattr(batch_mod, "_PALLAS_MODE", "interpret")
-    assert _use_batched_kernel(8, 1024, "threshold") is True
-    # Off mode and unsupported shapes/methods always fall back.
-    monkeypatch.setattr(batch_mod, "_PALLAS_MODE", "off")
-    assert _use_batched_kernel(1, 1024, "threshold") is False
+    monkeypatch.setattr(backend_mod, "is_gpu_backend", lambda: True)
+    monkeypatch.setattr(ps, "pallas_tracking_scan_batched", spy_batched)
+    return seen
+
+
+@pytest.mark.parametrize("n_videos", [1, 3])
+def test_scan_routing_by_batch_size(tmp_path, monkeypatch, n_videos,
+                                   fresh_fused_programs):
+    """On a GPU the library scan takes the kernel at EVERY batch size (one
+    program per video, no batch-size crossover), with tables equal to
+    the CPU's vmapped lax.scan. The map phase is plain jnp and runs on
+    the CPU whatever the gate says."""
+    from hsip_tpu import open_collection
+    from hsip_tpu.track.batch import track_collection_device
+
+    _library(tmp_path, n_videos)
+
+    def run():
+        with open_collection(str(tmp_path)) as coll:
+            return track_collection_device(coll, FlameDetectorConfig())
+
+    ref = run()
+    seen = _gpu_gate_with_interpret_spy(monkeypatch)
+    got = run()
+    assert seen == [n_videos]
+    assert [o.rows for o in got] == [o.rows for o in ref]
+    assert all(len(o.rows) > 3 for o in got)
+
+
+def test_gpu_gate_routes_single_video_scan_to_kernel(monkeypatch):
+    """run_tracking_scan_device: the GPU gate picks the kernel (here run
+    in interpret mode); rows equal the lax.scan backend's."""
+    from hsip_tpu.track.scan import run_tracking_scan_device
+
+    p, _ = _video_profiles(
+        FlameSpec(x0=25, v0_px=8, ignition_frame=2, seed=21), n=30
+    )
+    common = dict(config=FlameDetectorConfig(), frame_rate=1e5,
+                  calibration_m_per_px=0.001)
+    out_lax = run_tracking_scan_device(p, **common)
+    seen = _gpu_gate_with_interpret_spy(monkeypatch)
+    out_kernel = run_tracking_scan_device(p, **common)
+    assert seen == [1]
+    assert out_kernel.rows == out_lax.rows and len(out_lax.rows) > 3
+
+
+def test_kernel_error_propagates_without_fallback(tmp_path, monkeypatch,
+                                                 fresh_fused_programs):
+    """A kernel failure raises out of both the per-file and the library
+    scan; nothing quietly falls back to lax.scan."""
+    import hsip_tpu.utils.backend as backend_mod
+    from hsip_tpu import open_collection
+    from hsip_tpu.track.batch import track_collection_device
+    from hsip_tpu.track.scan import run_tracking_scan_device
+
+    class KernelFailure(RuntimeError):
+        pass
+
+    def broken(*a, **k):
+        raise KernelFailure("kernel failed to compile")
+
+    monkeypatch.setattr(backend_mod, "is_gpu_backend", lambda: True)
+    monkeypatch.setattr(ps, "pallas_tracking_scan_batched", broken)
+    p, _ = _video_profiles(
+        FlameSpec(x0=25, v0_px=8, ignition_frame=2, seed=21), n=20
+    )
+    with pytest.raises(KernelFailure):
+        run_tracking_scan_device(p, FlameDetectorConfig(), frame_rate=1e5,
+                                 calibration_m_per_px=0.001)
+    _library(tmp_path, 2)
+    with open_collection(str(tmp_path)) as coll:
+        with pytest.raises(KernelFailure):
+            track_collection_device(coll, FlameDetectorConfig())
+
+
+def _random_inputs(rng, V, M, W, method):
+    sob = rng.normal(0, 30, (V, M, W)).astype(np.float32)
+    grad = rng.normal(0, 15, (V, M, W)).astype(np.float32)
+    intens = np.abs(rng.normal(60, 40, (V, M, W))).astype(np.float32)
+    for v in range(V):
+        pos = (20 + (3 + v) * np.arange(M)) % (W - 30)
+        for i in range(M):
+            intens[v, i, pos[i]:pos[i] + 8] += 400.0
+    empty = rng.random((V, M)) < 0.15
+    prior = np.ones((V, M), bool)
+    if method == "combined":
+        prior[:, 0] = False
+    fidx = np.tile(np.arange(M, dtype=np.int32), (V, 1))
+    return fidx, sob, grad, intens, empty, prior
+
+
+def _batched_kw(V, W, method, intens):
+    return dict(
+        width=W,
+        min_gradient_strength=np.float32(10.0),
+        sobel_threshold_fraction=np.float32(0.1),
+        ddt_velocity_jump=np.float32(1250.0),
+        calibration=np.linspace(8e-4, 1.2e-3, V).astype(np.float32),
+        frame_rate=np.full(V, 1e5, np.float32),
+        max_displacement_px=np.arange(2, 2 + V, dtype=np.int32) % 5 + 1,
+        method=method,
+        intensity_lines=jnp.asarray(intens),
+        method_fraction=np.float32(0.5),
+    )
+
+
+def _vmapped_lax(fidx, sob, grad, empty, prior, kw):
+    kw = dict(kw)
+    cal, fr, md = (kw.pop("calibration"), kw.pop("frame_rate"),
+                   kw.pop("max_displacement_px"))
+    intens = kw.pop("intensity_lines")
+    return jax.vmap(
+        lambda f, s, g, it, e, hp, c, r, d: device_tracking_scan(
+            f, s, g, e, hp, calibration=c, frame_rate=r,
+            max_displacement_px=d, intensity_lines=it, **kw,
+        )
+    )(jnp.asarray(fidx), jnp.asarray(sob), jnp.asarray(grad), intens,
+      jnp.asarray(empty), jnp.asarray(prior), jnp.asarray(cal),
+      jnp.asarray(fr), jnp.asarray(md))
+
+
+@pytest.mark.parametrize("W", [1024, 1000, 250])
+@pytest.mark.parametrize("method", _METHODS)
+def test_kernel_parity_with_lax_scan(method, W):
+    """Interpret-mode kernel vs lax.scan, every field, at the bench width
+    (1024), a width just under it (1000: the block is masked) and a small
+    one — for all four detectors."""
+    rng = np.random.default_rng(W + sum(map(ord, method)))
+    fidx, sob, grad, intens, empty, prior = _random_inputs(
+        rng, 1, 24, W, method
+    )
+    kw = _batched_kw(1, W, method, intens)
+    a = _vmapped_lax(fidx, sob, grad, empty, prior, kw)
+    b = pallas_tracking_scan_batched(
+        fidx, sob, grad, jnp.asarray(empty), jnp.asarray(prior),
+        interpret=True, **kw,
+    )
+    _assert_identical(a, b)
+    assert int((np.asarray(a.final_position) >= 0).sum()) > 5
+
+
+@pytest.mark.parametrize("V", [2, 8, 16])
+def test_kernel_batched_parity(V):
+    """One program per video at V = 2, 8 and 16: per-video state and
+    parameters never leak between programs."""
+    method = ("combined", "gradient", "threshold")[V % 3]
+    rng = np.random.default_rng(40 + V)
+    fidx, sob, grad, intens, empty, prior = _random_inputs(
+        rng, V, 12, 128, method
+    )
+    kw = _batched_kw(V, 128, method, intens)
+    a = _vmapped_lax(fidx, sob, grad, empty, prior, kw)
+    b = pallas_tracking_scan_batched(
+        fidx, sob, grad, jnp.asarray(empty), jnp.asarray(prior),
+        interpret=True, **kw,
+    )
+    _assert_identical(a, b)
+
+
+def test_kernel_pad_columns_inert():
+    """W=250 loads a 256-wide block. With edge_margin 0 the windows reach
+    the last real column, and the values right after each row (the next
+    row's first columns) are extreme — the masked pad columns still never
+    win a reduction, for any detector."""
+    rng = np.random.default_rng(11)
+    V, M, W = 2, 16, 250
+    for method in _METHODS:
+        fidx, sob, grad, intens, empty, prior = _random_inputs(
+            rng, V, M, W, method
+        )
+        for arr, val in ((sob, 1e30), (grad, -1e30), (intens, 1e30)):
+            arr[:, :, :6] = val
+        kw = dict(_batched_kw(V, W, method, intens), edge_margin_px=0,
+                  exit_margin_px=0, search_window_px=400)
+        a = _vmapped_lax(fidx, sob, grad, empty, prior, kw)
+        b = pallas_tracking_scan_batched(
+            fidx, sob, grad, jnp.asarray(empty), jnp.asarray(prior),
+            interpret=True, **kw,
+        )
+        _assert_identical(a, b)
+
+
+@pytest.fixture
+def verified_triton(monkeypatch):
+    """Run MLIR's verifier on every Triton module the lowering builds. The
+    card parses the module and rejects one that fails it (for example an
+    ``arith.select`` whose branches differ in type); lowering alone writes
+    it out unchecked."""
+    from jax._src.pallas.triton import lowering
+
+    real = lowering.lower_jaxpr_to_triton_module
+    verified = []
+
+    def lower_and_verify(*a, **k):
+        result = real(*a, **k)
+        result.module.operation.verify()  # raises on an invalid module
+        verified.append(True)
+        return result
+
+    monkeypatch.setattr(lowering, "lower_jaxpr_to_triton_module",
+                        lower_and_verify)
+    return verified
+
+
+@pytest.mark.parametrize("method", _METHODS)
+def test_kernel_lowers_for_gpu(method, verified_triton):
+    """The Triton lowering of every detector at a masked width, without a
+    card: lowering for CUDA runs the Pallas->Triton rules (unsupported ops,
+    block shapes, scalar/tensor types) that interpret mode never checks,
+    and the verifier checks the module the card would parse."""
+    V, M, W = 2, 16, 1000
+    kw = dict(
+        width=W,
+        min_gradient_strength=np.float32(10.0),
+        sobel_threshold_fraction=np.float32(0.1),
+        ddt_velocity_jump=np.float32(1250.0),
+        calibration=jnp.ones(V, jnp.float32),
+        frame_rate=jnp.full(V, 1e5, jnp.float32),
+        max_displacement_px=jnp.full(V, 3, jnp.int32),
+        method=method,
+        intensity_lines=jnp.zeros((V, M, W), jnp.float32),
+        method_fraction=np.float32(0.5),
+    )
+    args = (jnp.zeros((V, M), jnp.int32), jnp.zeros((V, M, W)),
+            jnp.zeros((V, M, W)), jnp.zeros((V, M), bool),
+            jnp.ones((V, M), bool))
+    f = jax.jit(lambda *a: pallas_tracking_scan_batched(*a, **kw))
+    low = f.trace(*args).lower(lowering_platforms=("cuda",))
+    assert "triton" in low.as_text().lower()
+    assert verified_triton == [True]
+
+
+def test_mesh_kernel_lowers_for_gpu(verified_triton):
+    """The shard_map'd kernel (the mesh library path) lowers for CUDA: the
+    per-device pallas_call survives partitioning."""
+    from jax import shard_map
+    from jax.sharding import PartitionSpec as P
+
+    from hsip_tpu.parallel import make_mesh
+    from hsip_tpu.track.device_scan import DeviceScanResult
+
+    mesh = make_mesh("video", n_devices=4)
+    V, M, W = 4, 16, 1024
+
+    def kernel_scan(fi, sob, grad, empty, hp, cal, fps, md):
+        return pallas_tracking_scan_batched(
+            fi, sob, grad, empty, hp, width=W,
+            min_gradient_strength=np.float32(10.0),
+            sobel_threshold_fraction=np.float32(0.1),
+            ddt_velocity_jump=np.float32(1250.0),
+            calibration=cal, frame_rate=fps, max_displacement_px=md,
+        )
+
+    vm, vmw, vs = P("video", None), P("video", None, None), P("video")
+    f = jax.jit(shard_map(
+        kernel_scan, mesh=mesh,
+        in_specs=(vm, vmw, vmw, vm, vm, vs, vs, vs),
+        out_specs=DeviceScanResult(
+            final_position=vm, recorded=vm, is_post_ddt=vm,
+            search_start=vm, search_end=vm,
+            stop_step=vs, stop_reason=vs, ddt_frame=vs, clear_vc_entry=vs,
+        ),
+        check_vma=False,
+    ))
+    args = (
+        jnp.zeros((V, M), jnp.int32), jnp.zeros((V, M, W), jnp.float32),
+        jnp.zeros((V, M, W), jnp.float32), jnp.zeros((V, M), bool),
+        jnp.ones((V, M), bool), jnp.ones(V, jnp.float32),
+        jnp.full(V, 1e5, jnp.float32), jnp.full(V, 3, jnp.int32),
+    )
+    low = f.trace(*args).lower(lowering_platforms=("cuda",))
+    assert "triton" in low.as_text().lower()
+    assert verified_triton

@@ -1,4 +1,4 @@
-"""End-to-end pipeline tests: TPU-batched vs exact backends, output tables."""
+"""End-to-end pipeline tests: device-batched vs exact backends, output tables."""
 
 from pathlib import Path
 
@@ -47,7 +47,7 @@ def _source_config(recording, out, **kw):
 
 
 def test_tpu_backend_matches_exact_backend(recording, tmp_path):
-    """The batched band TPU path must produce IDENTICAL rows to the
+    """The batched band device path must produce IDENTICAL rows to the
     frame-at-a-time float64 exact path."""
     cfg = _source_config(recording, tmp_path / "o1")
     out_tpu = process_video_file(
@@ -193,7 +193,7 @@ def test_exit_truncation(tmp_path):
 
 @pytest.mark.parametrize("method", ["threshold", "gradient", "half_maximum"])
 def test_detection_methods_tpu_matches_exact(recording, tmp_path, method):
-    """Each named profile method must agree between the TPU-batched and the
+    """Each named profile method must agree between the device-batched and the
     exact float64 backends and produce a plausible trajectory."""
     cfg = _source_config(recording, tmp_path / f"m_{method}",
                          detection_method=method)
@@ -380,7 +380,7 @@ def test_sixteen_bit_band_path_matches_exact(tmp_path):
 
 @pytest.mark.parametrize("seed", [0, 1])
 def test_tpu_matches_exact_random_configs(recording, tmp_path, seed):
-    """TPU band path == exact backend across randomized detector configs
+    """Device band path == exact backend across randomized detector configs
     (odd kernels stay on the band path; even-k folding uses the fallback)."""
     rng = np.random.default_rng(seed)
     det = FlameDetectorConfig(

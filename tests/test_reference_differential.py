@@ -236,21 +236,11 @@ def test_tables_byte_identical_via_pallas_kernel(
     reference_tables, video_dir, tmp_path, monkeypatch
 ):
     """Strongest kernel evidence: the single-kernel Pallas scan (interpret
-    mode here; same code Mosaic compiles on the chip) reproduces the ACTUAL
-    reference's result tables byte for byte."""
+    mode here; the same code Triton compiles on the GPU) reproduces the
+    ACTUAL reference's result tables byte for byte."""
     import hsip_tpu.track.pallas_scan as ps
-    import hsip_tpu.track.scan as scan_mod
 
-    real_scan = scan_mod.run_tracking_scan_device
-    monkeypatch.setattr(
-        scan_mod, "run_tracking_scan_device",
-        lambda *a, **k: real_scan(*a, **{**k, "use_pallas_scan": True}),
-    )
-    real_kernel = ps.pallas_tracking_scan
-    monkeypatch.setattr(
-        ps, "pallas_tracking_scan",
-        lambda *a, **k: real_kernel(*a, **{**k, "interpret": True}),
-    )
+    monkeypatch.setattr(ps, "INTERPRET", True)
     ours_dir = tmp_path / "ours-pallas"
     _run_ours(video_dir, ours_dir, "device")
     ours = _tables(ours_dir)

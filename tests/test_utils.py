@@ -165,39 +165,47 @@ def test_resume_summary_accumulates_over_retried_failure(source_dir):
 
 
 def test_enable_persistent_compilation_cache(tmp_path, monkeypatch):
+    """JAX_COMPILATION_CACHE_DIR, when set, is the cache directory as it
+    is (no suffix, no other directory set in code)."""
     import jax
 
     from hsip_tpu.utils import enable_persistent_compilation_cache
 
     old = jax.config.jax_compilation_cache_dir
     try:
-        target = tmp_path / "xla-cache"
-        got = enable_persistent_compilation_cache(str(target))
+        target = tmp_path / "env-cache"
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(target))
+        got = enable_persistent_compilation_cache()
         assert got == str(target) and target.is_dir()
         assert jax.config.jax_compilation_cache_dir == str(target)
-        # Env-var resolution when no explicit path is given.
-        monkeypatch.setenv(
-            "JAX_COMPILATION_CACHE_DIR", str(tmp_path / "env-cache")
-        )
-        got2 = enable_persistent_compilation_cache()
-        assert got2 == str(tmp_path / "env-cache")
-        # The DEFAULT path partitions by the CPU ISA cap: capped and
-        # uncapped processes must never exchange cached executables (a
-        # capped process loading cached AVX-512 code is the SIGILL class
-        # the cap exists to prevent). HOME is redirected so the default
-        # resolution can't create (or fail on) the developer's real
-        # ~/.cache tree.
-        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR")
-        monkeypatch.setenv("HOME", str(tmp_path / "home"))
-        monkeypatch.setenv("XLA_FLAGS", "--xla_cpu_max_isa=AVX2")
-        got3 = enable_persistent_compilation_cache()
-        assert got3 is not None and got3.endswith("isa-AVX2")
-        assert got3.startswith(str(tmp_path / "home"))
-        monkeypatch.setenv("XLA_FLAGS", "")
-        got4 = enable_persistent_compilation_cache()
-        assert got4 is not None and got4.endswith("isa-native")
     finally:
         jax.config.update("jax_compilation_cache_dir", old)
+
+
+def test_default_compilation_cache_is_fixed_in_checkout(tmp_path):
+    """Unset, the cache is ONE fixed directory inside the checkout — the
+    same for two processes with different HOME and TMPDIR, so each finds
+    what the other compiled."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parents[1]
+    code = ("from hsip_tpu.utils import enable_persistent_compilation_cache"
+            " as e; print(e())")
+    got = []
+    for i in range(2):
+        env = {k: v for k, v in os.environ.items()
+               if k != "JAX_COMPILATION_CACHE_DIR"}
+        env.update(HOME=str(tmp_path / f"home{i}"),
+                   TMPDIR=str(tmp_path), JAX_PLATFORMS="cpu",
+                   PYTHONPATH=str(repo))
+        out = subprocess.run([sys.executable, "-c", code], env=env,
+                             capture_output=True, text=True, timeout=120)
+        assert out.returncode == 0, out.stderr[-800:]
+        got.append(out.stdout.strip().splitlines()[-1])
+    assert got[0] == got[1] == str(repo / ".jax_cache")
 
 
 def test_invalid_log_level_env_does_not_crash():

@@ -239,3 +239,68 @@ def test_render_diagnostics_parallel_end_to_end(tmp_path):
     )
     assert len(paths) == 1 and Path(paths[0]).exists()
     assert os.environ.get("JAX_PLATFORMS") == env_before
+
+
+_UNGUARDED_SCRIPT = '''
+import sys
+from pathlib import Path
+
+# Deliberately NO `if __name__ == "__main__":` guard: a spawned worker that
+# imported this file as its main module would append a second line.
+work = Path(sys.argv[1])
+with open(work / "runs.txt", "a") as f:
+    f.write("run\\n")
+
+from hsip_tpu import viz
+from hsip_tpu.io import FlameSpec, synthesize_flame_video, write_recording
+
+frames, _ = synthesize_flame_video(
+    6, height=32, width=128,
+    flame=FlameSpec(x0=20, v0_px=8, ignition_frame=1, seed=3),
+)
+meta = write_recording(work, "guard-run-1-a", frames)
+tasks = [{
+    "frame_idx": i, "time_s": i * 1e-5, "pos_min_gradient": None,
+    "pos_rightmost_sobel": None, "pos_spline_predicted": None,
+    "search_bounds": (0, 128), "final_position": 20 + 8 * i,
+} for i in range(1, 4)]
+entries = [(i, 20 + 8 * i) for i in range(6)]
+paths = viz.render_diagnostics_parallel(
+    str(meta), tasks, entries, 100_000.0, 0.001, 40.0, work / "out", "G",
+    workers=2, style="compact",
+)
+print("RENDERED", len(paths))
+'''
+
+
+def test_render_workers_do_not_rerun_unguarded_main(tmp_path):
+    """Spawned render workers must not execute the parent's main script:
+    one without a __main__ guard (a `hsip --distributed` driver, say) would
+    otherwise run again in every worker — re-joining the distributed
+    runtime under its parent's rank, which aborts the whole job."""
+    import os
+    import subprocess
+    import sys
+
+    repo = Path(__file__).resolve().parents[1]
+    script = tmp_path / "unguarded.py"
+    script.write_text(_UNGUARDED_SCRIPT)
+    env = dict(os.environ, PYTHONPATH=str(repo), JAX_PLATFORMS="cpu")
+    out = subprocess.run([sys.executable, str(script), str(tmp_path)],
+                         env=env, capture_output=True, text=True,
+                         timeout=240)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "RENDERED 3" in out.stdout
+    assert (tmp_path / "runs.txt").read_text().splitlines() == ["run"]
+
+
+def test_render_worker_init_hides_the_cards(monkeypatch):
+    """A render worker never opens an accelerator: its initializer hides
+    the cards and pins JAX to the CPU before any backend exists."""
+    import os
+
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "0,1,2,3")
+    monkeypatch.setenv("JAX_PLATFORMS", "cuda")
+    viz._render_worker_init(None)
+    assert os.environ["CUDA_VISIBLE_DEVICES"] == ""
+    assert os.environ["JAX_PLATFORMS"] == "cpu"

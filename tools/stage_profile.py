@@ -1,14 +1,14 @@
 """Stage-attributed profiling of the single-video and library pipelines.
 
-Builds (and caches under --cache-dir, default /tmp/hsip_stage_cache) a
-synthetic recording + an N-video library of hard links, then times both
+Builds (and caches under --cache-dir, default build/stage_cache in the
+checkout) a synthetic recording + an N-video library of hard links, then times both
 pipeline shapes with :class:`hsip_tpu.utils.StageTimes` attribution.
 
 Usage: python tools/stage_profile.py [--frames 2048] [--videos 8]
        [--repeat 3] [--mode both|single|library] [--platform cpu]
 
 The cache survives across runs so iterating on staging/overlap changes
-costs seconds, not the ~200 s synthesis.
+does not repeat the synthesis.
 """
 
 from __future__ import annotations
@@ -33,7 +33,11 @@ def main() -> int:
     ap.add_argument("--repeat", type=int, default=3)
     ap.add_argument("--mode", choices=("both", "single", "library"),
                     default="both")
-    ap.add_argument("--cache-dir", default="/tmp/hsip_stage_cache")
+    ap.add_argument(
+        "--cache-dir",
+        default=str(Path(__file__).resolve().parent.parent / "build"
+                    / "stage_cache"),
+    )
     ap.add_argument("--platform", default=None,
                     help="force a jax platform (e.g. cpu) before backend init")
     args = ap.parse_args()
